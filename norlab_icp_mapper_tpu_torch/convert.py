@@ -1,0 +1,110 @@
+"""State of the JAX package, as numpy arrays, into the port's.
+
+The system has no weights; its state is clouds and poses.  These functions
+take what ``np.asarray`` gives for the JAX package's device arrays (the
+caller does that conversion: this module imports nothing of JAX) and build
+the port's objects, so that a test can run scan *n+1* in both packages from
+the same state.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from .draws import resolve_device
+from .points import PointBatch
+from .ops.nn_sweep import RefPack
+
+__all__ = ["point_batch_from_numpy", "presort_pack_from_numpy",
+           "mapper_state_from_numpy"]
+
+
+def point_batch_from_numpy(positions: np.ndarray, mask: np.ndarray,
+                           descriptors: Optional[Dict[str, np.ndarray]] = None,
+                           device="cuda") -> PointBatch:
+    """Full-capacity arrays of a JAX ``PointBatch`` -> the port's.
+
+    Mask and padding rows are preserved bit for bit (this is not the
+    compacted dict that ``PointBatch.to_numpy`` returns)."""
+    dev = resolve_device(device)
+    pos = torch.from_numpy(np.array(positions, dtype=np.float32)).to(dev)
+    msk = torch.from_numpy(np.array(mask, dtype=bool)).to(dev)
+    if pos.ndim != 2 or msk.shape != (pos.shape[0],):
+        raise ValueError("positions must be [C, D] and mask [C]")
+    desc = {}
+    for name, v in (descriptors or {}).items():
+        v = np.array(v, dtype=np.float32)
+        if v.ndim == 1:
+            v = v[:, None]
+        if v.shape[0] != pos.shape[0]:
+            raise ValueError(f"descriptor '{name}' has {v.shape[0]} rows, "
+                             f"expected {pos.shape[0]}")
+        desc[name] = torch.from_numpy(v).to(dev)
+    return PointBatch(pos, msk, desc)
+
+
+def presort_pack_from_numpy(ref_s, ref_mask_s, ref_xs, ref_order, ref_planar,
+                            center, device="cuda") -> RefPack:
+    """The six fields of the JAX package's ``presort_ref`` -> the port's
+    ``RefPack``.  ``ref_planar`` (the ``[8, M_pad]`` layout of the TPU
+    kernel) has no counterpart and is ignored; the count of valid refs takes
+    its place."""
+    del ref_planar
+    dev = resolve_device(device)
+    mask = torch.from_numpy(np.array(ref_mask_s, dtype=bool)).to(dev)
+    return RefPack(
+        torch.from_numpy(np.array(ref_s, dtype=np.float32)).to(dev),
+        mask,
+        torch.from_numpy(np.array(ref_xs, dtype=np.float32)).to(dev),
+        torch.from_numpy(np.array(ref_order, dtype=np.int64)).to(dev),
+        mask.sum(),
+        torch.from_numpy(np.array(center, dtype=np.float32)).to(dev))
+
+
+def mapper_state_from_numpy(mapper, map_arrays, ref_arrays=None, pose=None,
+                            last_pose=None, last_time_ns=None, window=None,
+                            loaded_cell_ids: Iterable[str] = (),
+                            cells: Optional[Dict[str, Dict[str, np.ndarray]]]
+                            = None) -> None:
+    """Put a port ``Mapper`` into the state of a JAX ``Mapper`` after
+    ``drain()``.
+
+    ``map_arrays`` / ``ref_arrays``: ``(positions, mask, descriptors)`` of
+    the local cloud and (when the engine has reference filters) of the ICP
+    reference, at full capacity.  ``pose`` / ``last_pose``: latest corrected
+    pose and pose at the last map update.  ``last_time_ns``: stamp of the
+    last map update (``-inf`` for none).  ``window``: the rolling window's
+    six grid bounds, or None if the first pose update is still pending.
+    ``cells``: the saved (evicted) cells, id -> host dict."""
+    dev = mapper.device
+    local = point_batch_from_numpy(*map_arrays, device=dev)
+    mapper.map.set_local(local, None, mapper.draws)
+    if ref_arrays is not None:
+        mapper.icp._ref = point_batch_from_numpy(*ref_arrays, device=dev)
+        from .ops.nn_sweep import presort_ref
+        mapper.icp._ref_presorted = presort_ref(mapper.icp._ref.positions,
+                                                mapper.icp._ref.mask)
+    mapper.map.new_local_available = False
+    d = mapper.dim
+    eye = np.eye(d + 1, dtype=np.float32)
+    mapper.pose = None if pose is None else np.array(pose, dtype=np.float32)
+    mapper.last_pose_where_map_was_updated = (
+        eye if last_pose is None else np.array(last_pose, dtype=np.float32))
+    mapper.last_time_map_was_updated = (
+        -np.inf if last_time_ns is None or not np.isfinite(last_time_ns)
+        else int(last_time_ns))
+    mapper._meta = None
+    mapper._epoch_ns = None
+    if window is None:
+        mapper.map.first_pose_update = True
+        mapper.map._window = None
+    else:
+        mapper.map.first_pose_update = False
+        mapper.map._window = [int(v) for v in window]
+    mapper.map.loaded_cell_ids = set(loaded_cell_ids)
+    mapper.map.cell_manager.clear_all_cells()
+    for cid, cell in (cells or {}).items():
+        mapper.map.cell_manager.save_cell(
+            cid, {k: np.array(v) for k, v in cell.items()})

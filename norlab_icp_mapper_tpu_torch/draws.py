@@ -1,0 +1,85 @@
+"""Devices and explicit randomness for the port.
+
+Two things every entry point of the port takes explicitly:
+
+* a ``device``.  It defaults to ``"cuda"``; asking for the card on a machine
+  that has none raises instead of carrying on on the CPU.
+* the random draws.  The JAX package draws from threefry keys; torch's
+  generator cannot reproduce those numbers, so every drawing site accepts
+  the draws themselves.  A :class:`DrawSource` hands them out, either from a
+  seeded ``torch.Generator`` or from a caller-supplied callable
+  ``(site: str, n: int) -> Tensor`` (the parity tests use the latter to feed
+  both packages the same numbers).
+
+Drawing sites on the ported path:
+
+* ``SITE_RANDOM_SAMPLING`` -- ``RandomSamplingDataPointsFilter``: ``n``
+  uniforms in ``[0, 1)``, float32.
+* ``SITE_OCTREE_PRIO`` -- the voxel decimation's random tie-break priorities
+  (``samplingMethod: 1``): ``n`` integers in ``[0, 2**15)``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Union
+
+import torch
+
+__all__ = ["DrawSource", "resolve_device", "SITE_RANDOM_SAMPLING",
+           "SITE_OCTREE_PRIO"]
+
+SITE_RANDOM_SAMPLING = "random_sampling"
+SITE_OCTREE_PRIO = "octree_prio15"
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda"
+                   ) -> torch.device:
+    """Return ``torch.device(device)``; raise if it names a CUDA device and
+    this machine has none.  ``None`` means the default, ``"cuda"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested (the default) but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU")
+    return dev
+
+
+class DrawSource:
+    """Hands out the random draws of one Mapper / filter chain.
+
+    ``source`` (optional) replaces the generator: it is called as
+    ``source(site, n)`` and must return a tensor (or array) of ``n`` draws
+    of the site's kind.
+    """
+
+    def __init__(self, seed: int = 0,
+                 device: Union[str, torch.device] = "cpu",
+                 source: Optional[Callable[[str, int], torch.Tensor]] = None):
+        self.device = torch.device(device)
+        self.source = source
+        # the generator lives on the CPU so that a seed gives the same
+        # draws on every device; draws are a few hundred KB per scan
+        self.generator = torch.Generator(device="cpu")
+        self.generator.manual_seed(int(seed))
+
+    def _from_source(self, site: str, n: int, dtype) -> torch.Tensor:
+        out = torch.as_tensor(self.source(site, n))
+        if out.shape != (n,):
+            raise ValueError(
+                f"draw_source('{site}', {n}) returned shape "
+                f"{tuple(out.shape)}, expected ({n},)")
+        return out.to(device=self.device, dtype=dtype)
+
+    def uniform(self, site: str, n: int) -> torch.Tensor:
+        """``n`` float32 uniforms in ``[0, 1)`` on the source's device."""
+        if self.source is not None:
+            return self._from_source(site, n, torch.float32)
+        return torch.rand(n, generator=self.generator,
+                          dtype=torch.float32).to(self.device)
+
+    def prio15(self, site: str, n: int) -> torch.Tensor:
+        """``n`` int64 priorities in ``[0, 2**15)`` on the source's device."""
+        if self.source is not None:
+            return self._from_source(site, n, torch.int64)
+        return torch.randint(0, 1 << 15, (n,), generator=self.generator,
+                             dtype=torch.int64).to(self.device)
