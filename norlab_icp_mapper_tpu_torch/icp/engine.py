@@ -12,10 +12,12 @@ per scan.  This engine reproduces that contract:
     solve, SE(3) exp update -- or the identity minimizer
   - convergence: counter / differential transformation checkers
 
-The iteration loop is a Python loop.  The clouds and every per-point pass
-stay on the clouds' device; the 6x6 normal equations come to the host once
-per iteration (the one host read of the loop), and the damped solve, the
-exp map and the checkers run there on tiny CPU tensors.  Correspondences
+The iteration loop is a Python loop whose whole state -- the clouds, the
+normal equations, the damped solve, the exp map, the running transform and
+the differential checker's window -- stays on the clouds' device.  The host
+keeps the iteration count and reads one boolean per iteration (the
+checker's verdict); the correction comes to the host once, after the loop.
+Correspondences
 are re-searched every ``rematch_every`` iterations (default 3,
 ``NIM_TPU_REMATCH_EVERY``) and held in between.
 
@@ -278,8 +280,9 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
     otherwise the reference is sorted ONCE here -- either way the sort stays
     out of the iteration loop.
 
-    Returns ``(correction (D+1,D+1) CPU, overlap 0-d on the reading's
-    device, iterations int, rms residual 0-d CPU, overflow 0-d)``;
+    Returns ``(correction (D+1,D+1) on the host, overlap 0-d, iterations
+    int, rms residual 0-d, overflow 0-d)``, the 0-d tensors on the reading's
+    device;
     ``overflow`` sums the matcher's overflowing tiles over all passes.
     """
     f32 = torch.float32
@@ -346,49 +349,51 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
         overlap = matched.to(f32).sum() / n_valid_read
         return q, qn, w, overlap
 
-    def normal_equations(p, q, qn, w):
-        """Weighted point-to-plane J^T J, J^T r and sum(w r^2), sum(w),
-        packed in one vector so that one copy brings them to the host."""
+    def minimize(p, q, qn, w):
+        """Weighted point-to-plane Gauss-Newton step on the reading's
+        device: normal equations, damped solve, exp map.  Returns the
+        increment ``dT`` and the rms residual of the weighted pairs."""
         r = torch.einsum("nkd,nkd->nk", qn, p[:, None, :] - q)  # [N, k]
         if dim == 3:
             cx = torch.cross(p[:, None, :].expand_as(q), qn, dim=-1)
             J = torch.cat([qn, cx], dim=-1)  # [N, k, 6]
-            dof = 6
         else:
             cross2 = p[:, None, 0] * qn[..., 1] - p[:, None, 1] * qn[..., 0]
             J = torch.cat([qn, cross2[..., None]], dim=-1)  # [N, k, 3]
-            dof = 3
         Jf = J.reshape(-1, dof)
         rf = r.reshape(-1)
         wf = w.reshape(-1)
         Jw = Jf * wf[:, None]
         JtJ = Jw.T @ Jf
         Jtr = Jw.T @ rf
-        tail = torch.stack([torch.sum(wf * rf * rf), torch.sum(wf)])
-        return torch.cat([JtJ.reshape(-1), Jtr, tail]), dof
-
-    def minimize_host(packed, dof):
-        """Damped solve + exp map on the host from the packed equations."""
-        JtJ = packed[:dof * dof].reshape(dof, dof)
-        Jtr = packed[dof * dof:dof * dof + dof]
-        wrr, wsum = packed[-2], torch.clamp(packed[-1], min=1e-9)
+        wrr = torch.sum(wf * rf * rf)
+        wsum = torch.clamp(torch.sum(wf), min=1e-9)
         # Levenberg-style relative damping: degenerate geometry (e.g. a
         # corridor, unconstrained along-track) leaves JtJ near-singular;
         # absolute 1e-6*I lets the pose slide meters along the null space.
         # Damping at 1e-3 of the mean eigenvalue bounds the null-space step
         # while biasing constrained directions <0.1%.
         lam = 1e-3 * torch.trace(JtJ) / dof + 1e-6
-        JtJ = JtJ + lam * torch.eye(dof, dtype=f32)
-        dx = -torch.linalg.solve(JtJ, Jtr)
+        JtJ = JtJ + lam * eye_dof
+        # solve_ex: the damped matrix is never singular, and the error
+        # check of linalg.solve would be a second host read per iteration
+        dx = -torch.linalg.solve_ex(JtJ, Jtr).result
         dT = se3.exp_se3(dx) if dim == 3 else se3.exp_se2(dx)
         return dT, torch.sqrt(wrr / wsum)
 
-    T = torch.eye(hdim, dtype=f32)  # host
+    # The whole loop state lives on the reading's device.  The host keeps
+    # the iteration count and reads one boolean per iteration (the
+    # differential checker's verdict); the correction comes to the host
+    # once, after the loop.
+    eye_h = torch.eye(hdim, dtype=f32, device=dev)
+    dof = 6 if dim == 3 else 3
+    eye_dof = torch.eye(dof, dtype=f32, device=dev)
+    T = eye_h
     it = 0
     done = False
     overlap = torch.zeros((), dtype=f32, device=dev)
-    rms = torch.zeros((), dtype=f32)
-    hist = torch.full((smooth_len, 2), float("inf"), dtype=f32)
+    rms = torch.zeros((), dtype=f32, device=dev)
+    hist = torch.full((smooth_len, 2), float("inf"), dtype=f32, device=dev)
     use_reuse = rematch_every > 1 and not identity
     corr = None
     while it < max_iter and not done:
@@ -397,11 +402,9 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
             corr = match_and_weigh(p)
         q, qn, w, overlap = corr
         if identity:
-            dT = torch.eye(hdim, dtype=f32)
-            rms = torch.zeros((), dtype=f32)
+            dT = eye_h
         else:
-            packed, dof = normal_equations(p, q, qn, w)
-            dT, rms = minimize_host(packed.cpu(), dof)  # the host read
+            dT, rms = minimize(p, q, qn, w)
         T = dT @ T
         done = identity
         # differential checker: rolling window of increment magnitudes
@@ -409,11 +412,12 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
         drot = _rot_angle(dT[:dim, :dim])
         hist = torch.roll(hist, 1, dims=0)
         hist[0] = torch.stack([dtrans, drot])
-        if diff_checker is not None:
+        if (diff_checker is not None and not done
+                and it + 1 >= smooth_len):
             min_t, min_r, _ = diff_checker
             means = hist.mean(dim=0)
-            warmed = it + 1 >= smooth_len
-            done = done or bool(warmed and means[0] < min_t
-                                and means[1] < min_r)
+            # the one host read of the iteration
+            done = bool((means[0] < min_t) & (means[1] < min_r))
         it += 1
+    T = T.cpu()
     return T, overlap, it, rms, overflow_total

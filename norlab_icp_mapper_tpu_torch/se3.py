@@ -4,8 +4,8 @@ Apply a homogeneous (D+1)x(D+1) transform to point positions and rotate
 covariant descriptors (normals), plus the exp/log maps the Gauss-Newton
 minimizer needs.  Every function works on whatever device its arguments
 lie on; ``apply`` and ``apply_points`` move a transform that lies on
-another device than the points (the 4x4 matrices of the solve live on the
-host, the clouds on the card).
+another device than the points (the Mapper's poses live on the host, the
+clouds and the ICP loop's running transform on the card).
 """
 from __future__ import annotations
 
