@@ -17,6 +17,8 @@ Phases:
   kernels   each kernel against its plain version at the path's shapes
   identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence
   p2plane   a Mapper on examples/config_p2plane.yaml, pose priors perturbed
+  default   a Mapper without a config (``Mapper(None)``: matcher without
+            maxDist, k-NN normals, PointDistanceMapperModule), same priors
 
 The sequence is 18 scans of a ray-cast lidar (64 rings x 768 azimuths =
 49,152 rays) in an analytic hall of 60 x 25 x 5 m with box obstacles, made
@@ -24,7 +26,10 @@ with numpy from ``--seed``.  The hall is dense enough that most search
 windows reach their cap ``W`` (the stress case); the kernels phase also
 holds every kernel shape against its plain version on a sparser seeded
 cloud of the same capacities where no window overflows, which is where the
-search is exact.
+search is exact.  The brute-force k-NN kernel is held against its plain
+version on a map built the way the default config builds it (the first scan
+whole, every second scan gated at 0.15 m from the map), at the three shapes
+that path gives it, plus a 2-D and two ragged cases.
 
 In the ``kernels`` line, ``replaces`` gives file:line inside the JAX
 reference package that stands beside the port.
@@ -37,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -191,6 +197,15 @@ def phase_card():
     return card
 
 
+def _ptxas_line(line: str) -> str:
+    """A line of ``ptxas -v`` made short: a mangled kernel name becomes
+    ``name<template arguments>``."""
+    m = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)E", line)
+    if m:
+        return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    return line.replace("ptxas info    : ", "").strip()[:100]
+
+
 def phase_build():
     from norlab_icp_mapper_tpu_torch.ops import _build
     t0 = time.time()
@@ -200,8 +215,11 @@ def phase_build():
     secs = time.time() - t0
     regs = {}
     for name, log in _build.build_logs.items():
-        regs[name] = [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln][:24]
+        # per kernel: its name with template arguments, spills, registers
+        # and shared memory
+        regs[name] = [_ptxas_line(ln) for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln][:36]
     emit({"phase": "build", "seconds": round(secs, 2),
           "sources": [f"norlab_icp_mapper_tpu_torch/csrc/{n}.cu"
                       for n in _build.KERNEL_SOURCES], "ptxas": regs})
@@ -448,6 +466,176 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool,
     }
 
 
+def default_like_map(scans, poses, min_dist=0.15):
+    """The map as the default config builds it, in numpy: the first scan
+    whole, then every second scan's points that lie at least ``min_dist``
+    from the map so far (PointDistanceMapperModule; the default update
+    condition merges about every second scan of this sequence)."""
+    from scipy.spatial import cKDTree
+    pts = None
+    for s, p in list(zip(scans, poses))[::2]:
+        w = (s @ p[:3, :3].T + p[:3, 3]).astype(np.float32)
+        if pts is None:
+            pts = w
+            continue
+        d, _ = cKDTree(pts).query(w)
+        pts = np.concatenate([pts, w[d >= min_dist]])
+    return pts
+
+
+def library_knn(query, ref_valid, k, chunk=8192):
+    """The yardstick: chunked ``torch.cdist`` + ``torch.topk`` over the
+    valid references (timed here, used nowhere in the port)."""
+    out = []
+    for q0 in range(0, query.shape[0], chunk):
+        d = torch.cdist(query[q0:q0 + chunk], ref_valid)
+        out.append(torch.topk(d, min(k, ref_valid.shape[0]), dim=1,
+                              largest=False))
+    return out
+
+
+def knn_case(name, query, qmask, ref, rmask, k, role=None):
+    """One knn shape: kernel against plain version (bit-identical d2,
+    indices equal except at exact ties, d2 recomputed from the returned
+    index equal to the returned d2, rows ascending, -1 exactly where the
+    plain version has it), then timed."""
+    from norlab_icp_mapper_tpu_torch.ops import nn as N
+    dim = query.shape[1]
+    before = (N.knn.launches, dict(N.knn.launches_by_shape))
+    d_k, i_k = N.knn(query, ref, qmask, rmask, k=k)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    d_p, i_p = N.knn_plain(query, ref, qmask, rmask, k=k)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+
+    fin = torch.isfinite(d_p)
+    check(bool((torch.isfinite(d_k) == fin).all()),
+          f"{name}: validity pattern differs from the plain version")
+    max_err = float((d_k[fin] - d_p[fin]).abs().max()) if fin.any() else 0.0
+    check(max_err == 0.0, f"{name}: d2 differs from the plain version's by "
+                          f"{max_err} (bit-identical is required)")
+    check(bool(((i_k == -1) == (i_p == -1)).all())
+          and bool(((i_k >= 0) == fin).all()),
+          f"{name}: -1 is not exactly where the plain version has it")
+    if k > 1:
+        asc = d_k[:, 1:] >= d_k[:, :-1]
+        check(bool(asc.all()), f"{name}: a row is not ascending")
+    hit = i_k >= 0
+    qq = query[:, None, :].expand(-1, k, -1)[hit]
+    rr = ref[i_k[hit]]
+    d_idx = (rr[:, 0] - qq[:, 0]) ** 2
+    for a in range(1, dim):
+        d_idx = d_idx + (rr[:, a] - qq[:, a]) ** 2
+    idx_err = float((d_idx - d_k[hit]).abs().max()) if hit.any() else 0.0
+    check(idx_err == 0.0, f"{name}: d2 recomputed from the returned indices "
+                          f"differs from the returned d2 by {idx_err}")
+    if rmask is not None:
+        check(bool(rmask[i_k[hit]].all()),
+              f"{name}: a returned neighbour is an invalid reference")
+    if qmask is not None:
+        check(bool((~hit[~qmask]).all()),
+              f"{name}: an invalid query has a neighbour")
+    # with d2 bit-identical and every returned index holding its returned
+    # d2, an index that differs from the plain version's is an exact tie
+    same = i_k == i_p
+    differ = ~same & fin
+
+    # kernel launch alone (the pack built once, as the matcher has it),
+    # the whole wrapper, and the library yardstick
+    pack = N.pack_refs(ref, rmask)
+    qc = query.contiguous()
+    ms = time_cuda(lambda: N._knn_kernel(qc, qmask, pack, k), reps=5)
+    wrapper_ms = time_cuda(lambda: N.knn(query, ref, qmask, rmask, k=k),
+                           reps=5)
+    ref_valid = ref if rmask is None else ref[rmask]
+    q_valid = query if qmask is None else query[qmask]
+    n_vq, n_vr = q_valid.shape[0], ref_valid.shape[0]
+    library_ms = None
+    if n_vr > 0 and n_vq > 0:
+        library_ms = time_cuda(lambda: library_knn(q_valid, ref_valid, k),
+                               reps=3, warmup=1)
+    N.knn.launches, N.knn.launches_by_shape = before
+
+    n, m = query.shape[0], ref.shape[0]
+    pairs = n_vq * n_vr
+    flops_pair = 3 * dim  # D subtractions, D products, D-1 sums, 1 compare
+    # queries + their mask, the packed valid references + their ids and
+    # count, and per query k distances (f32) and k indices (i64)
+    bytes_moved = (n * dim * 4 + (n if qmask is not None else 0)
+                   + n_vr * (dim * 4 + 4) + 8 + n * k * 12)
+    ops_ms = pairs * flops_pair / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({
+        "phase": "kernel_case", "case": name, "kernel": "knn_brute",
+        "D": dim, "k": k, "N": n, "M": m, "valid_queries": n_vq,
+        "valid_refs": n_vr, "max_abs_err_d2": max_err,
+        "max_abs_err_d2_from_idx": idx_err,
+        "frac_idx_equal": float(same.float().mean()),
+        "idx_differing_at_exact_ties": int(differ.sum()),
+        "kernel_ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "library": "chunked torch.cdist + torch.topk over the valid "
+                   "references (8192 queries per chunk)",
+        "pairs": pairs, "gpairs_per_s": pairs / (ms * 1e-3) / 1e9,
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_arithmetic": f"{n_vq} valid queries x {n_vr} valid refs x "
+                            f"{flops_pair} f32 operations / 67 TFLOP/s; "
+                            f"{bytes_moved} bytes / 3.35 TB/s",
+    })
+    if role is None:
+        return None
+    return {
+        "name": f"knn_brute[D={dim},k={k},{role}]", "route": "cuda",
+        "source": "norlab_icp_mapper_tpu_torch/csrc/knn_brute.cu",
+        "replaces": "ops/nn_pallas.py:53",
+        "launches": 0, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def knn_cases(scans, poses, rng, dev):
+    """The brute-force kernel at the default path's three shapes, then a
+    2-D case and two ragged ones."""
+    import norlab_icp_mapper_tpu_torch as nt
+    world = default_like_map(scans, poses)
+    cap = nt.bucket_capacity(world.shape[0] + SCAN_CAPACITY)
+    mp = nt.PointBatch.from_numpy(world, capacity=cap, device=dev)
+    sc = nt.PointBatch.from_numpy(scans[-1], capacity=SCAN_CAPACITY,
+                                  device=dev)
+    scan_m = nt.se3.apply(torch.from_numpy(poses[-1]), sc)
+    # the reading after RandomSampling 0.75
+    keep = torch.from_numpy(rng.random(SCAN_CAPACITY) < 0.75).to(dev)
+    entries = [
+        knn_case("default_matcher_k1", scan_m.positions, scan_m.mask & keep,
+                 mp.positions, mp.mask, 1, role="matcher"),
+        knn_case("default_point_distance_k1", scan_m.positions, scan_m.mask,
+                 mp.positions, mp.mask, 1, role="point_distance"),
+        knn_case("default_normals_k10", mp.positions, mp.mask, mp.positions,
+                 mp.mask, 10, role="normals"),
+    ]
+    q2 = torch.from_numpy(
+        rng.uniform(-20, 20, size=(5000, 2)).astype(np.float32)).to(dev)
+    r2 = torch.from_numpy(
+        rng.uniform(-20, 20, size=(7000, 2)).astype(np.float32)).to(dev)
+    knn_case("knn_2d_k5", q2, torch.from_numpy(rng.random(5000) > 0.1).to(dev),
+             r2, torch.from_numpy(rng.random(7000) > 0.2).to(dev), 5)
+    # ragged: N and M multiples of neither the block (128) nor the tile (256)
+    q3 = torch.from_numpy(rng.normal(size=(1237, 3)).astype(np.float32)).to(dev)
+    r3 = torch.from_numpy(rng.normal(size=(1531, 3)).astype(np.float32)).to(dev)
+    # duplicates, so that exact ties occur
+    r3[700:760] = r3[100:160]
+    knn_case("knn_ragged_k10", q3, None, r3,
+             torch.from_numpy(rng.random(1531) > 0.3).to(dev), 10)
+    few = torch.zeros(1531, dtype=torch.bool, device=dev)
+    few[[3, 400, 401, 777, 1000, 1500, 1530]] = True
+    knn_case("knn_ragged_7_valid_refs_k10", q3,
+             torch.from_numpy(rng.random(1237) > 0.5).to(dev), r3, few, 10)
+    return entries
+
+
 def numpy_map(scans, poses, voxel=0.15):
     """A map-like cloud without the Mapper: the union of the scans in the
     world frame, one point per voxel (numpy)."""
@@ -499,6 +687,7 @@ def phase_kernels(scans, poses, seed):
     m2 = torch.from_numpy(rng.random(4096) > 0.1).to(dev)
     pca_case("small_2d", p2, m2, 1.0, 1024, 2048, on_path=False)
     exact_cases(rng, dev)
+    entries += knn_cases(scans, poses, rng, dev)
     return entries
 
 
@@ -536,20 +725,27 @@ def exact_cases(rng, dev):
 
 
 def reset_counts():
+    from norlab_icp_mapper_tpu_torch.ops.nn import knn
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     sweep_knn.launches = 0
     sweep_knn.launches_by_shape = {}
     radius_pca.launches = 0
+    knn.launches = 0
+    knn.launches_by_shape = {}
 
 
 def read_counts():
+    from norlab_icp_mapper_tpu_torch.ops.nn import knn
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     out = {f"sweep_knn[D={d},k={k}]": v
            for (d, k), v in sweep_knn.launches_by_shape.items()}
+    out.update({f"knn_brute[D={d},k={k}]": v
+                for (d, k), v in knn.launches_by_shape.items()})
     out["radius_pca[D=3]"] = radius_pca.launches
     out["sweep_knn"] = sweep_knn.launches
+    out["knn_brute"] = knn.launches
     return out
 
 
@@ -622,6 +818,116 @@ def check_map(mapper, rec, n_scans):
           f"map count dropped by more than 10 % in one scan: {c}")
 
 
+def drive_default(scans, priors):
+    """``Mapper(None)``: the default config (matcher without maxDist, k-NN
+    normals as reference filter, PointDistanceMapperModule), full width."""
+    import norlab_icp_mapper_tpu_torch as nt
+    mapper = nt.Mapper(None, is_3d=True, device="cuda", seed=0)
+    mapper.timer.enabled = True
+    reset_counts()
+    per_scan, counts, caps, valid, iters, merged = [], [], [], [], [], []
+    last_merge = None
+    warmup = {}
+    for i, (scan, prior) in enumerate(zip(scans, priors)):
+        mapper.drain()
+        t0 = time.time()
+        batch = nt.PointBatch.from_numpy(scan, capacity=SCAN_CAPACITY,
+                                         device="cuda")
+        filtered = mapper.apply_input_filters(batch)
+        before, stamp = mapper.map.local, mapper.last_time_map_was_updated
+        mapper.process_input(filtered, prior, int(i * 1e8))
+        mapper.drain()
+        per_scan.append((time.time() - t0) * 1e3)
+        did = mapper.last_time_map_was_updated != stamp
+        merged.append(bool(did))
+        if did and i > 0:
+            last_merge = (i, before, filtered, mapper.get_pose().copy(),
+                          counts[-1])
+        counts.append(mapper.map.known_count())
+        caps.append(mapper.map.local.capacity)
+        valid.append(int(filtered.count()))
+        iters.append(int(mapper.last_iterations))
+        if i == 1:
+            warmup = mapper.timer.totals()
+    launches = read_counts()
+    phases = mapper.timer.totals()
+    steady = per_scan[2:]
+    rec = {
+        "phase": "default", "config": None, "scans": len(scans),
+        "valid_points_per_scan_min": min(valid),
+        "per_scan_ms": [round(v, 2) for v in per_scan],
+        "steady_ms_per_scan": statistics.mean(steady),
+        "scans_per_s": 1e3 / statistics.mean(steady),
+        "merged": merged, "map_counts": counts, "map_capacities": caps,
+        "final_map_count": counts[-1], "map_capacity": caps[-1],
+        "icp_iterations": iters, "launches": launches,
+        "phase_ms_steady_total": {k: round(v, 2) for k, v in phases.items()},
+        "phase_ms_first_two_scans": {k: round(v, 2)
+                                     for k, v in warmup.items()},
+    }
+    return mapper, rec, last_merge
+
+
+def check_last_merge(mapper, last_merge, min_dist=0.15, border=1e-4):
+    """The keep decision of every scan point in the run's last merge, held
+    against a kd-tree on the host built from the map as it stood before
+    that merge: equal except where the distance lies within ``border`` of
+    ``min_dist``.  (Scan points are tested against the map only, never
+    against each other.)"""
+    from scipy.spatial import cKDTree
+    i, before, filtered, pose, count_before = last_merge
+    old = before.to_numpy()["positions"]
+    check(old.shape[0] == count_before,
+          "default: the map before the last merge has another count than "
+          "was recorded")
+    now = mapper.map.local.to_numpy()["positions"]
+    # insert() compacts the map and appends the kept scan points in order
+    check(np.array_equal(now[:count_before], old),
+          "default: the last merge changed points the map already held")
+    new_pts = now[count_before:]
+    sm = filtered.mask.cpu().numpy()
+    scan_c = (filtered.positions.cpu().numpy()[sm].astype(np.float64)
+              @ pose[:3, :3].T.astype(np.float64) + pose[:3, 3])
+    dist, _ = cKDTree(old.astype(np.float64)).query(scan_c)
+    # which scan points the port kept: each new map point is a scan point
+    d_new, src = cKDTree(scan_c).query(new_pts.astype(np.float64))
+    check(float(d_new.max()) < 1e-4 and len(set(src.tolist())) == len(src),
+          "default: a point added by the last merge is not a scan point")
+    kept = np.zeros(scan_c.shape[0], bool)
+    kept[src] = True
+    borderline = np.abs(dist - min_dist) < border
+    wrong = (kept != (dist >= min_dist)) & ~borderline
+    emit({"phase": "default_last_merge", "scan": i,
+          "map_points_before": int(count_before),
+          "scan_points": int(scan_c.shape[0]), "kept": int(kept.sum()),
+          "pairs": int(scan_c.shape[0]) * int(count_before),
+          "borderline_within_1e-4_m": int(borderline.sum()),
+          "wrong_decisions": int(wrong.sum())})
+    check(int(wrong.sum()) == 0,
+          f"default: {int(wrong.sum())} keep decisions of the last merge "
+          "differ from the kd-tree's outside the borderline band")
+
+
+def check_default_map(mapper, rec, n_scans):
+    m = mapper.get_map()
+    check(sorted(m) == ["positions"],
+          f"default: the map carries descriptors {sorted(m)}")
+    check(np.isfinite(m["positions"]).all(), "non-finite map positions")
+    check(len(mapper.get_trajectory()) == n_scans,
+          "trajectory length differs from the number of scans")
+    check(rec["valid_points_per_scan_min"] >= 40_000,
+          "fewer than 40,000 valid points in a scan")
+    c = rec["map_counts"]
+    check(all(b >= a for a, b in zip(c, c[1:])),
+          f"default: the map shrank under a config that only adds: {c}")
+    check(all(cap >= n for cap, n in zip(rec["map_capacities"], c)),
+          "default: a map count exceeds its capacity")
+    ref = mapper.icp._ref
+    nrm = torch.linalg.norm(ref.descriptors["normals"][ref.mask], dim=1)
+    check(float((nrm - 1.0).abs().max()) < 1e-3,
+          "default: a reference normal is not unit length")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -678,12 +984,59 @@ def main() -> int:
           and p2_launch["radius_pca[D=3]"] > 0,
           f"p2plane: a kernel of the path was never launched: {p2_launch}")
 
-    # ---- the kernels line: launches are the main path's (both configs)
+    # ---- default: no config at all, the same perturbed priors
+    mapper, rec, last_merge = drive_default(scans, priors)
+    est = mapper.get_trajectory().poses
+    rec_ate = ate(est[1:], poses[1:])
+    its = rec["icp_iterations"][1:]
+    df_launch = rec["launches"]
+    n_merges = sum(rec["merged"])  # the bootstrap scan included
+    k1 = df_launch.get("knn_brute[D=3,k=1]", 0)
+    df_launch["knn_brute[D=3,k=10,normals]"] = \
+        df_launch.get("knn_brute[D=3,k=10]", 0)
+    # PointDistance searches once per merge after the bootstrap scan; the
+    # other k = 1 launches are the matcher's passes
+    df_launch["knn_brute[D=3,k=1,point_distance]"] = n_merges - 1
+    df_launch["knn_brute[D=3,k=1,matcher]"] = k1 - (n_merges - 1)
+    last_n = int(mapper.map.local.capacity)
+    rec.update({
+        "prior_ate_m": prior_ate, "recovered_ate_m": rec_ate,
+        "mean_icp_iterations": statistics.mean(its),
+        "ms_per_gn_iteration": (rec["phase_ms_steady_total"]["solve"]
+                                / sum(its[1:])),
+        "merges": n_merges,
+        "pairs_normals_last": last_n * last_n,
+        "pairs_normals_last_valid": rec["final_map_count"] ** 2,
+        "pairs_matcher_pass_last": rec["valid_points_per_scan_min"]
+        * rec["final_map_count"],
+    })
+    emit(rec)
+    check_default_map(mapper, rec, len(scans))
+    check(rec_ate < prior_ate / 3.0,
+          f"default: recovered ATE {rec_ate} not below a third of the "
+          f"prior's {prior_ate}")
+    check(statistics.mean(its) > 1.0, "default: the solver did not iterate")
+    check(df_launch["sweep_knn"] == 0 and df_launch["radius_pca[D=3]"] == 0,
+          f"default: a sweep kernel ran on the path without a radius: "
+          f"{df_launch}")
+    check(n_merges >= 3 and df_launch["knn_brute[D=3,k=10,normals]"]
+          == n_merges,
+          f"default: {n_merges} merges but "
+          f"{df_launch['knn_brute[D=3,k=10,normals]']} normals passes")
+    check(df_launch["knn_brute[D=3,k=1,matcher]"] >= len(scans) - 1,
+          f"default: fewer matcher passes than scans: {df_launch}")
+    check(rec["map_capacity"] > MAP_CAPACITY,
+          f"default: the map buffer stayed at {rec['map_capacity']}")
+    check(last_merge is not None, "default: no merge after the first scan")
+    check_last_merge(mapper, last_merge)
+
+    # ---- the kernels line: launches are the main paths' (three configs)
     for e in entries:
-        e["launches"] = (id_launch.get(e["name"], 0)
-                         + p2_launch.get(e["name"], 0))
-        e["launches_identity"] = id_launch.get(e["name"], 0)
-        e["launches_p2plane"] = p2_launch.get(e["name"], 0)
+        runs = {"identity": id_launch, "p2plane": p2_launch,
+                "default": df_launch}
+        for name, counts in runs.items():
+            e[f"launches_{name}"] = counts.get(e["name"], 0)
+        e["launches"] = sum(e[f"launches_{name}"] for name in runs)
         check(e["launches"] > 0, f"{e['name']} was never launched")
     print(card, flush=True)
     emit({"kernels": entries})

@@ -82,10 +82,11 @@ def mapper_state_from_numpy(mapper, map_arrays, ref_arrays=None, pose=None,
     local = point_batch_from_numpy(*map_arrays, device=dev)
     mapper.map.set_local(local, None, mapper.draws)
     if ref_arrays is not None:
+        # the reference-filtered map (e.g. with the normals of the default
+        # config's SurfaceNormal reference filter) replaces what set_local
+        # computed, and the matcher's pack is rebuilt for it
         mapper.icp._ref = point_batch_from_numpy(*ref_arrays, device=dev)
-        from .ops.nn_sweep import presort_ref
-        mapper.icp._ref_presorted = presort_ref(mapper.icp._ref.positions,
-                                                mapper.icp._ref.mask)
+        mapper.icp._ref_presorted = mapper.icp.build_ref_pack(mapper.icp._ref)
     mapper.map.new_local_available = False
     d = mapper.dim
     eye = np.eye(d + 1, dtype=np.float32)

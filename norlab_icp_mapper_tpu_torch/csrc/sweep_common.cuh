@@ -1,6 +1,8 @@
-// Shared pieces of the two sorted-sweep kernels (sweep_knn.cu, radius_pca.cu).
+// Shared pieces of the kernels: the two sorted-sweep kernels (sweep_knn.cu,
+// radius_pca.cu) and the brute-force search (knn_brute.cu), which uses the
+// distance and the staging below with the whole reference array as its window.
 //
-// Schedule, common to both: queries and references are sorted by x.  One
+// Schedule, common to the two sweeps: queries and references are sorted by x.  One
 // thread owns one query; a block owns `blockDim.x` consecutive sorted
 // queries and a contiguous window [start[b], end[b]) of the sorted
 // references that the wrapper computed for it (every reference within the

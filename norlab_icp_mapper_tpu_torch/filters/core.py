@@ -1,8 +1,9 @@
 """DataPointsFilters as vectorized masked passes over PointBatch.
 
-Each filter mirrors a libpointmatcher filter that the bundled configs and
-the Mapper reach: BoundingBox, DistanceLimit, AddDescriptor, SurfaceNormal
-(radius engine), CutAtDescriptorThreshold, RandomSampling.  A filter is a
+Each filter mirrors a libpointmatcher filter that the bundled configs, the
+default config and the Mapper reach: BoundingBox, DistanceLimit,
+AddDescriptor, SurfaceNormal (radius and k-NN engines),
+CutAtDescriptorThreshold, RandomSampling.  A filter is a
 function ``apply(batch, draws) -> batch`` that only edits masks and
 descriptors; shapes never change.  ``draws`` is a
 :class:`~norlab_icp_mapper_tpu_torch.draws.DrawSource`; only filters that
@@ -225,8 +226,9 @@ class SurfaceNormalFilter(DataPointsFilter):
       fits the k nearest within maxDist): on a decimated map both see the
       same local surface.  ``knn`` still acts as the minimum neighbor count
       below which the neighborhood is treated as degenerate.
-    - ``maxDist`` = inf: exact k-NN PCA (lpm semantics).  Not ported yet: it
-      needs the brute-force k-NN kernel.
+    - ``maxDist`` = inf: exact k-NN PCA (lpm semantics): the cloud searched
+      against itself by brute force (``ops/nn.py``), moments of the k
+      neighbours, one closed-form eigensolve.
     """
 
     NAME = "SurfaceNormalDataPointsFilter"
@@ -251,12 +253,34 @@ class SurfaceNormalFilter(DataPointsFilter):
     def apply(self, batch, draws=None):
         k = int(self.params["knn"])
         max_dist = self.params["maxDist"]
-        if max_dist == float("inf"):
-            raise NotImplementedError(
-                "SurfaceNormalDataPointsFilter with maxDist = inf (the k-NN "
-                "engine) is not ported yet: it needs the brute-force k-NN "
-                "kernel; set a finite maxDist to use the radius engine")
-        return self._apply_radius_pca(batch, k, float(max_dist))
+        if max_dist != float("inf"):
+            return self._apply_radius_pca(batch, k, float(max_dist))
+        from ..ops.nn import knn
+        pos = batch.positions
+        d2, idx = knn(pos, pos, batch.mask, batch.mask, k=k)
+        neigh = pos[torch.clamp(idx, min=0)]  # [N, k, D]
+        # fewer than k valid points leave the tail of a row at -1
+        w = (idx >= 0).to(torch.float32)[..., None]  # [N, k, 1]
+        cnt = torch.clamp(w.sum(dim=1), min=1.0)  # [N, 1]
+        mean = (neigh * w).sum(dim=1) / cnt
+        centered = (neigh - mean[:, None, :]) * w
+        cov = torch.einsum("nkd,nke->nde", centered, centered) / cnt[..., None]
+        if batch.dim == 3:
+            evals, normals = sym_eig3_smallest(cov)
+        else:
+            evals, normals = sym_eig2_smallest(cov)
+        out = batch
+        if self.params["keepNormals"] >= 0.5:
+            out = out.with_descriptor("normals", normals)
+        if self.params["keepDensities"] >= 0.5:
+            # lpm: density = knn / volume of the knn-ball
+            r = torch.sqrt(torch.where(idx >= 0, d2, torch.zeros_like(d2))
+                           .amax(dim=1))
+            vol = 4.0 / 3.0 * math.pi * torch.clamp(r, min=1e-6) ** 3
+            out = out.with_descriptor("densities", (cnt[:, 0] / vol)[:, None])
+        if self.params["keepEigenValues"] >= 0.5:
+            out = out.with_descriptor("eigValues", evals)
+        return out
 
     def _apply_radius_pca(self, batch, k, max_dist):
         from ..ops.pca import radius_pca

@@ -14,8 +14,11 @@ state, so the Mapper's hot path is a single call per scan:
   bufs:  map       PointBatch -- local point cloud, fixed capacity w/ headroom
          ref       PointBatch -- reference-filtered map for ICP (only when
                                  the engine has referenceDataPointsFilters)
-         ref_sort  RefPack    -- the sorted reference of the sweep matcher,
-                                 carried across scans, rebuilt only on merge
+         ref_sort  pack       -- what the matcher prepares once per reference
+                                 (the sweep's sorted pack, or the packed
+                                 valid references of the brute-force
+                                 search), carried across scans, rebuilt
+                                 only on merge
   meta:  pose      (D+1,D+1)  -- corrected pose of the latest scan   (host)
          last_pose (D+1,D+1)  -- pose at the last map update         (host)
          last_t    f32        -- seconds at the last map update      (host)
@@ -41,7 +44,6 @@ import torch
 from . import se3
 from .points import PointBatch
 from .map import apply_post_filters
-from .ops.nn_sweep import presort_ref
 
 __all__ = ["FusedScanStep", "PhaseTimer"]
 
@@ -109,7 +111,7 @@ class FusedScanStep:
         sref = bufs.get("ref", bufs["map"])
         pack = self._m.icp._ref_presorted
         if pack is None or self._m.icp._ref is not sref:
-            pack = presort_ref(sref.positions, sref.mask)
+            pack = self._m.icp.build_ref_pack(sref)
         bufs["ref_sort"] = pack
         meta = {
             "pose": torch.as_tensor(np.asarray(pose), dtype=torch.float32),
@@ -137,7 +139,7 @@ class FusedScanStep:
         ref_normals = m.icp.check_reference(ref)
         correction, overlap, iters, _resid = m.icp.solve(
             reading.positions, reading.mask, ref.positions, ref_normals,
-            ref.mask, ref_presorted=bufs.get("ref_sort"))
+            ref.mask, ref_presorted=bufs.get("ref_sort"), draws=m.draws)
         corrected = correction @ est_pose
 
         cond = m.map_update_condition
@@ -166,12 +168,14 @@ class FusedScanStep:
                                    timer=m.timer)
         new = {"map": local}
         if self.has_ref:
-            new["ref"] = m.icp.reference_filters._apply_impl(local, m.draws)
-        # the solve reference changed -- rebuild the sorted pack (once per
-        # merge instead of once per solve)
+            with m.timer.phase("reference_filters", dev):
+                new["ref"] = m.icp.reference_filters._apply_impl(local,
+                                                                 m.draws)
+        # the solve reference changed -- rebuild the matcher's pack (once
+        # per merge instead of once per solve)
         sref = new.get("ref", new["map"])
         with m.timer.phase("presort", dev):
-            new["ref_sort"] = presort_ref(sref.positions, sref.mask)
+            new["ref_sort"] = m.icp.build_ref_pack(sref)
         return new
 
     def _step_impl(self, bufs, meta, scan, est_pose, stamp_s, is_mapping):

@@ -232,6 +232,13 @@ class Map:
         self.icp.set_map(local, draws)
         self.new_local_available = True
 
+    def grow_local(self, capacity: int) -> None:
+        """Pad the local cloud to ``capacity`` (same points, same count);
+        the ICP engine pads its reference alike."""
+        self.local = self.local.pad_to(capacity)
+        self.icp.grow_map(self.local)
+        self.new_local_available = True
+
     # --------------------------------------------------------- merge pipeline
     def update_local_point_cloud(self, scan: PointBatch, pose,
                                  post_filters,

@@ -14,7 +14,9 @@ Parity with reference ``Mapper.{h,cpp}``:
     PointDistanceMapperModule(minDistNewPoint=0.15)
 
 The first scan (an empty map) takes the stepwise bootstrap path; every later
-scan runs :class:`~norlab_icp_mapper_tpu_torch.fused.FusedScanStep`.  The
+scan runs :class:`~norlab_icp_mapper_tpu_torch.fused.FusedScanStep`, unless
+the config has a BoundTransformationChecker: that one throws on violation,
+which only the stepwise path can do.  The
 map's capacity is managed in the simple form: the count is read once per
 merged scan and the buffer grows to ``bucket_capacity(count + headroom)``
 with one whole scan of headroom.
@@ -248,7 +250,10 @@ class Mapper:
         scan = filtered_scan_in_sensor_frame.to(self.device)
         if self._epoch_ns is None:
             self._epoch_ns = int(timestamp_ns)
-        if (not self.map.first_pose_update
+        # lpm's bound checker THROWS on violation; only the stepwise path
+        # can raise host-side (the engine's __call__ reproduces it)
+        if (self.icp.bound_checker is None
+                and not self.map.first_pose_update
                 and not self.map.is_local_point_cloud_empty()):
             self._process_input_fused(scan, estimated_pose, timestamp_ns,
                                       scan_valid_hint)
@@ -284,12 +289,11 @@ class Mapper:
         """One fused step per scan, then host bookkeeping."""
         hint = int(scan_valid_hint) if scan_valid_hint else scan.capacity
         headroom = max(1, self.map.merge_headroom_scans()) * hint
-        local = self.map.local
         count = self.map.known_count()
-        if count + headroom > local.capacity:
-            local = local.pad_to(bucket_capacity(count + headroom))
-            # the padded rows change the reference's shape: new sorted pack
-            self.map.set_local(local, count, self.draws)
+        if count + headroom > self.map.local.capacity:
+            # the padded rows change the reference's shape: the engine
+            # pads its reference alike and rebuilds the matcher's pack
+            self.map.grow_local(bucket_capacity(count + headroom))
 
         if self._meta is None:
             # rebase the f32 session epoch so in-step relative seconds stay

@@ -3,7 +3,6 @@
 Parity with the reference's three modules:
 
   - PointDistanceMapperModule -- map dedup by 1-NN distance gate
-    (registered; its update needs the brute-force k-NN kernel, not ported)
   - OctreeMapperModule        -- concatenate + octree/voxel decimation
   - DynamicPointsMapperModule -- Bayesian dynamic-point probability update
 
@@ -15,12 +14,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import se3
 from ..draws import DrawSource, SITE_OCTREE_PRIO
 from ..points import PointBatch, insert
 from ..registry import Param, ParametrizedPlugin, Registry
+from ..ops.nn import nn1
 from ..ops.voxel import voxel_select
 
 mapper_module_registry = Registry("MapperModule")
@@ -51,9 +52,12 @@ class MapperModule(ParametrizedPlugin):
 class PointDistanceMapperModule(MapperModule):
     """Add only scan points at least ``minDistNewPoint`` from the map.
 
-    Registered so that configs naming it load; the update itself is a 1-NN
-    of each scan point into the whole map, which needs the brute-force k-NN
-    kernel and is not ported yet."""
+    Mirrors ``PointDistanceMapperModule.cpp``: 1-NN of each scan point into
+    the map (libnabo kd-tree there, the brute-force search of ``ops/nn.py``
+    here), keep points with squared distance >= minDistNewPoint^2, insert
+    the survivors.  Scan points are tested against the map only, never
+    against each other.
+    """
 
     NAME = "PointDistanceMapperModule"
     PARAMS = {
@@ -62,12 +66,17 @@ class PointDistanceMapperModule(MapperModule):
             "is not added to the map (in meters).", 0.03, float, 0.0),
     }
 
+    # one inserting pass: Map sizes the buffer with one scan of headroom
     INSERTS = 1
 
     def update_map(self, scan, map_batch, pose, draws=None):
-        raise NotImplementedError(
-            "PointDistanceMapperModule.update_map is not ported yet: it "
-            "needs the brute-force k-NN kernel (nn1 without a radius)")
+        min_dist = self.params["minDistNewPoint"]
+        d2, _ = nn1(scan.positions, map_batch.positions, scan.mask,
+                    map_batch.mask)
+        # no match (inf) counts as "far" and is kept, as in nabo; the gate
+        # is rounded to f32 once, like the distances it is held against
+        keep = scan.mask & ~(d2 < float(np.float32(min_dist * min_dist)))
+        return insert(map_batch, scan.with_mask(keep))
 
 
 @mapper_module_registry.register

@@ -149,6 +149,73 @@ def test_surface_normal_radius_engine(rng, dim, extras):
         np.testing.assert_allclose(et, ej, atol=5e-3)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("knn,extras", [(5, False), (10, True)])
+def test_surface_normal_knn_engine(rng, dim, knn, extras):
+    """``maxDist = inf``: PCA over the k nearest neighbours (the cloud
+    searched against itself).  The reference's CPU search ranks by the
+    expanded-form distance, so where the k-th and (k+1)-th neighbours lie
+    within its rounding of each other the two packages may fit another
+    tenth neighbour: normals compared sign-free (an eigenvector has no
+    sign), 99 % within |cos| > 1 - 1e-4 and all within 1 - 1e-2."""
+    n = 800
+    pts = _surface_cloud(rng, n, dim)
+    bj, bt = _both(pts)
+    holes = np.ones(bj.capacity, bool)
+    holes[rng.integers(0, n, 60)] = False
+    bj = bj.with_mask(jnp.asarray(holes))
+    bt = bt.with_mask(torch.from_numpy(holes))
+    params = dict(knn=knn, keepDensities=int(extras),
+                  keepEigenValues=int(extras))
+    oj = jf.filter_registry.create("SurfaceNormalDataPointsFilter",
+                                   dict(params)).apply(bj)
+    ot = tf.filter_registry.create("SurfaceNormalDataPointsFilter",
+                                   dict(params)).apply(bt)
+    valid = np.asarray(oj.mask)
+    np.testing.assert_array_equal(ot.mask.numpy(), valid)
+    nj = np.asarray(oj.descriptors["normals"])[valid]
+    nt = ot.descriptors["normals"].numpy()[valid]
+    np.testing.assert_allclose(np.linalg.norm(nt, axis=1), 1.0, atol=1e-5)
+    cos = np.abs(np.sum(nj * nt, axis=1))
+    assert (cos > 1 - 1e-4).mean() > 0.99
+    assert (cos > 1 - 1e-2).all()
+    # the surfaces are a floor and a wall (lines in 2-D): most normals
+    # point along an axis
+    assert (np.abs(nt).max(axis=1) > 0.95).mean() > 0.9
+    if extras:
+        # density = k / volume of the k-ball: r^3 triples the relative
+        # error of the k-th distance
+        np.testing.assert_allclose(
+            ot.descriptors["densities"].numpy()[valid],
+            np.asarray(oj.descriptors["densities"])[valid], rtol=2e-2)
+        np.testing.assert_allclose(
+            ot.descriptors["eigValues"].numpy()[valid],
+            np.asarray(oj.descriptors["eigValues"])[valid], atol=1e-4)
+
+
+def test_surface_normal_knn_engine_with_fewer_than_k_points(rng):
+    """Four valid points and knn = 10: the rows of the search end in -1, and
+    both packages fit the four points they have."""
+    pts = rng.normal(size=(40, 3)).astype(np.float32)
+    bj, bt = _both(pts)
+    mask = np.zeros(bj.capacity, bool)
+    mask[[3, 9, 21, 30]] = True
+    oj = jf.filter_registry.create(
+        "SurfaceNormalDataPointsFilter", {"knn": 10, "keepEigenValues": 1}
+    ).apply(bj.with_mask(jnp.asarray(mask)))
+    ot = tf.filter_registry.create(
+        "SurfaceNormalDataPointsFilter", {"knn": 10, "keepEigenValues": 1}
+    ).apply(bt.with_mask(torch.from_numpy(mask)))
+    nj = np.asarray(oj.descriptors["normals"])[mask]
+    nt = ot.descriptors["normals"].numpy()[mask]
+    assert (np.abs(np.sum(nj * nt, axis=1)) > 1 - 1e-4).all()
+    # all four points see the same four neighbours: one normal
+    assert (np.abs(nt @ nt[0]) > 1 - 1e-4).all()
+    np.testing.assert_allclose(ot.descriptors["eigValues"].numpy()[mask],
+                               np.asarray(oj.descriptors["eigValues"])[mask],
+                               atol=1e-5)
+
+
 def _bundled(section, name="config.yaml"):
     with open(f"examples/{name}") as fh:
         return yaml.safe_load(fh)[section]
@@ -200,7 +267,8 @@ def test_chain_errors_and_queued_features():
         tf.filter_registry.create(
             "CutAtDescriptorThresholdDataPointsFilter",
             dict(descName="nope")).apply(bt)
-    # the k-NN engine of SurfaceNormal needs the brute-force kernel
-    with pytest.raises(NotImplementedError, match="maxDist = inf"):
-        tf.filter_registry.create("SurfaceNormalDataPointsFilter",
-                                  {"knn": 5}).apply(bt)
+    # the k-NN engine of SurfaceNormal on a cloud of one repeated point: a
+    # zero covariance takes the eigensolver's fallback, nothing raises
+    out = tf.filter_registry.create("SurfaceNormalDataPointsFilter",
+                                    {"knn": 5}).apply(bt)
+    assert bool(torch.isfinite(out.descriptors["normals"]).all())

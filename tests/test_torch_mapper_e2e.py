@@ -462,9 +462,13 @@ def test_queued_facade_features_raise_by_name(rng):
         mt.enable_keyframes()
     with pytest.raises(NotImplementedError, match="refine_trajectory"):
         mt.refine_trajectory()
-    # the default config's chain needs the brute-force k-NN kernel: the
-    # first scan bootstraps the map, the second meets what is not ported
+    # the default config runs: the first scan bootstraps the map (k-NN
+    # normals over it), the second registers against it and, 1.5 m on,
+    # merges through PointDistanceMapperModule
     pts = rng.normal(size=(100, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="maxDist = inf"):
-        feed(mt, nt.PointBatch, pts, np.eye(4, dtype=np.float32), 0,
-             device="cpu")
+    feed(mt, nt.PointBatch, pts, np.eye(4, dtype=np.float32), 0, device="cpu")
+    moved = np.eye(4, dtype=np.float32)
+    moved[0, 3] = 1.5
+    feed(mt, nt.PointBatch, pts - moved[:3, 3], moved, int(1e8), device="cpu")
+    assert len(mt.get_trajectory()) == 2 and mt.last_iterations >= 1
+    assert mt.map.known_count() >= 100

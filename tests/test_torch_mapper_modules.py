@@ -187,6 +187,79 @@ def test_octree_create_map_and_passthrough(rng):
     assert int(out.count()) == 200
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("min_dist", [0.15, 0.4])
+def test_point_distance_update_map(rng, dim, min_dist):
+    """Scan points at 0 .. 2 minDist from their nearest map point.  The
+    reference's CPU engine ranks by the expanded-form distance (error about
+    ``eps * |x|^2`` ~ 2e-5 m^2 at these coordinates, i.e. below 1e-4 m in
+    distance at the gate), so a decision may differ only where the true
+    nearest distance lies within 1e-4 m of minDist; everywhere else the two
+    packages keep the same points, in the same slots."""
+    n_map, n_scan = 600, 400
+    map_pts = rng.uniform(-6, 6, size=(n_map, dim)).astype(np.float32)
+    step = rng.normal(size=(n_scan, dim))
+    step *= (rng.uniform(0, 2 * min_dist, n_scan)
+             / np.linalg.norm(step, axis=1))[:, None]
+    scan_pts = (map_pts[rng.integers(0, n_map, n_scan)] + step
+                ).astype(np.float32)
+    scan_pts[:5] += 100.0  # far from everything: kept
+    desc_m = {"w": np.arange(n_map)}
+    desc_s = {"w": 1000 + np.arange(n_scan)}
+    mj = JBatch.from_numpy(map_pts, desc_m, capacity=1280)
+    mt = TBatch.from_numpy(map_pts, desc_m, capacity=1280, device="cpu")
+    # some invalid slots on both sides
+    holes_m = np.ones(1280, bool)
+    holes_m[rng.integers(0, n_map, 40)] = False
+    holes_s = np.ones(512, bool)
+    holes_s[rng.integers(0, n_scan, 30)] = False
+    sj = JBatch.from_numpy(scan_pts, desc_s, capacity=512)
+    st = TBatch.from_numpy(scan_pts, desc_s, capacity=512, device="cpu")
+    mj, sj = mj.with_mask(jnp.asarray(holes_m)), sj.with_mask(jnp.asarray(holes_s))
+    mt = mt.with_mask(torch.from_numpy(holes_m))
+    st = st.with_mask(torch.from_numpy(holes_s))
+    params = {"minDistNewPoint": min_dist}
+    oj = jm.mapper_module_registry.create(
+        "PointDistanceMapperModule", dict(params)).update_map(
+            sj, mj, jnp.eye(dim + 1))
+    ot = tm.mapper_module_registry.create(
+        "PointDistanceMapperModule", dict(params)).update_map(
+            st, mt, torch.eye(dim + 1))
+    # the decision per scan point, in float64 on the host
+    valid_map = map_pts[holes_m[:n_map]]
+    dist = np.sqrt(((scan_pts.astype(np.float64)[:, None]
+                     - valid_map.astype(np.float64)[None]) ** 2).sum(-1)
+                   ).min(1)
+    alive = holes_s[:n_scan]
+    border = alive & (np.abs(dist - min_dist) < 1e-4)
+    expect = alive & (dist >= min_dist)
+    kept_t = set(ot.descriptors["w"].numpy()[ot.mask.numpy(), 0].astype(int))
+    kept_j = set(np.asarray(oj.descriptors["w"])[np.asarray(oj.mask), 0]
+                 .astype(int))
+    scan_ids = 1000 + np.arange(n_scan)
+    sure = set(scan_ids[expect & ~border])
+    maybe = set(scan_ids[border])
+    map_ids = set(np.arange(n_map)[holes_m[:n_map]])
+    assert 0.05 < expect.mean() < 0.95  # the gate really cuts
+    assert map_ids | sure <= kept_t <= map_ids | sure | maybe
+    assert len(kept_t ^ kept_j) <= len(maybe)
+    assert set(scan_ids[:5]) <= kept_t  # no match within reach: kept
+    if not (kept_t ^ kept_j):
+        np.testing.assert_array_equal(ot.mask.numpy(), np.asarray(oj.mask))
+        np.testing.assert_array_equal(ot.positions.numpy(),
+                                      np.asarray(oj.positions))
+
+
+def test_point_distance_into_an_empty_map_keeps_the_scan(rng):
+    """No valid map point: every distance is inf, which counts as far."""
+    pts = rng.normal(size=(100, 3)).astype(np.float32)
+    mod = tm.mapper_module_registry.create("PointDistanceMapperModule", {})
+    out = mod.update_map(TBatch.from_numpy(pts, device="cpu"),
+                         TBatch.empty(256, 3, device="cpu"), torch.eye(4))
+    assert int(out.count()) == 100
+    np.testing.assert_array_equal(out.positions.numpy()[:100], pts)
+
+
 def test_registry_and_queued_modules(rng):
     assert tm.mapper_module_registry.names() == \
         jm.mapper_module_registry.names()
@@ -195,8 +268,8 @@ def test_registry_and_queued_modules(rng):
     assert mod.INSERTS == 1
     b = TBatch.from_numpy(rng.normal(size=(10, 3)).astype(np.float32),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="PointDistanceMapperModule"):
-        mod.update_map(b, b, torch.eye(4))
+    # a cloud merged into itself adds nothing: every point has itself at 0
+    assert int(mod.update_map(b, b.pad_to(512), torch.eye(4)).count()) == 10
     with pytest.raises(KeyError, match="unknown MapperModule"):
         tm.mapper_module_registry.create("NopeModule")
     with pytest.raises(ValueError, match="above maximum"):
