@@ -19,6 +19,9 @@ Phases:
   p2plane   a Mapper on examples/config_p2plane.yaml, pose priors perturbed
   default   a Mapper without a config (``Mapper(None)``: matcher without
             maxDist, k-NN normals, PointDistanceMapperModule), same priors
+  p2point   the default config with the point-to-point minimizer, median and
+            surface-normal outlier filters and a step filter, 6 scans; then
+            4 scans with a bound checker added (the stepwise path)
 
 The sequence is 18 scans of a ray-cast lidar (64 rings x 768 azimuths =
 49,152 rays) in an analytic hall of 60 x 25 x 5 m with box obstacles, made
@@ -310,11 +313,9 @@ def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
     ms = time_cuda(lambda: S._search_kernel(q_s, qm_s, pack.ref_s, b_start,
                                             b_end, r2, k, n_pad))
     wrapper_ms = time_cuda(lambda: S.sweep_knn(q_srt, ref, qm_srt, rmask, **kw))
-    torch.cuda.synchronize()
-    t0 = time.time()
-    S._search_plain(q_s, qm_s, pack.ref_s, t_start, t_end, live, r2, k, q_tile)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+    plain_ms = time_cuda(lambda: S._search_plain(
+        q_s, qm_s, pack.ref_s, t_start, t_end, live, r2, k, q_tile),
+        reps=2, warmup=1)
 
     # the bound, from this run's windows
     spans = (b_end - b_start)
@@ -416,11 +417,8 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool,
                                              b_end, r2, n_pad))
     wrapper_ms = time_cuda(lambda: P.radius_pca(
         pts, pts, mask, mask, max_radius=radius, q_tile=q_tile, W=W))
-    torch.cuda.synchronize()
-    t0 = time.time()
-    P._moments_plain(q_s, qm_s, ref_s, t_start, t_end, live, r2, q_tile)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+    plain_ms = time_cuda(lambda: P._moments_plain(
+        q_s, qm_s, ref_s, t_start, t_end, live, r2, q_tile), reps=2, warmup=1)
     P.radius_pca.launches = before
 
     spans = (b_end - b_start)
@@ -503,11 +501,7 @@ def knn_case(name, query, qmask, ref, rmask, k, role=None):
     dim = query.shape[1]
     before = (N.knn.launches, dict(N.knn.launches_by_shape))
     d_k, i_k = N.knn(query, ref, qmask, rmask, k=k)
-    torch.cuda.synchronize()
-    t0 = time.time()
     d_p, i_p = N.knn_plain(query, ref, qmask, rmask, k=k)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
 
     fin = torch.isfinite(d_p)
     check(bool((torch.isfinite(d_k) == fin).all()),
@@ -542,12 +536,15 @@ def knn_case(name, query, qmask, ref, rmask, k, role=None):
     differ = ~same & fin
 
     # kernel launch alone (the pack built once, as the matcher has it),
-    # the whole wrapper, and the library yardstick
+    # the whole wrapper, the plain version and the library yardstick, each
+    # a median between CUDA events after a warm-up
     pack = N.pack_refs(ref, rmask)
     qc = query.contiguous()
     ms = time_cuda(lambda: N._knn_kernel(qc, qmask, pack, k), reps=5)
     wrapper_ms = time_cuda(lambda: N.knn(query, ref, qmask, rmask, k=k),
                            reps=5)
+    plain_ms = time_cuda(lambda: N.knn_plain(query, ref, qmask, rmask, k=k),
+                         reps=2, warmup=1)
     ref_valid = ref if rmask is None else ref[rmask]
     q_valid = query if qmask is None else query[qmask]
     n_vq, n_vr = q_valid.shape[0], ref_valid.shape[0]
@@ -818,13 +815,37 @@ def check_map(mapper, rec, n_scans):
           f"map count dropped by more than 10 % in one scan: {c}")
 
 
-def drive_default(scans, priors):
-    """``Mapper(None)``: the default config (matcher without maxDist, k-NN
-    normals as reference filter, PointDistanceMapperModule), full width."""
+def count_k1_launches(obj, method, tally, key):
+    """Wrap ``obj.method`` so that the ``knn_brute`` launches at D=3, k=1
+    made inside it are added to ``tally[key]``: the wrapper's counter is
+    read before and after every call."""
+    from norlab_icp_mapper_tpu_torch.ops.nn import knn
+    inner = getattr(obj, method)
+
+    def counted(*args, **kwargs):
+        before = knn.launches_by_shape.get((3, 1), 0)
+        out = inner(*args, **kwargs)
+        tally[key] += knn.launches_by_shape.get((3, 1), 0) - before
+        return out
+    setattr(obj, method, counted)
+
+
+def drive_default(scans, priors, config=None, phase="default"):
+    """``Mapper(config)`` on a path without a radius (matcher without
+    maxDist, k-NN normals as reference filter, PointDistanceMapperModule),
+    full width; ``None`` is the default config."""
     import norlab_icp_mapper_tpu_torch as nt
-    mapper = nt.Mapper(None, is_3d=True, device="cuda", seed=0)
+    mapper = nt.Mapper(config, is_3d=True, device="cuda", seed=0)
     mapper.timer.enabled = True
     reset_counts()
+    # who launched the k = 1 searches: counter readings around the
+    # PointDistance module and around the ICP solve
+    check(mapper.map.modules[0].NAME == "PointDistanceMapperModule",
+          f"{phase}: the mapper module is {mapper.map.modules[0].NAME}")
+    k1_by = {"point_distance": 0, "matcher": 0}
+    count_k1_launches(mapper.map.modules[0], "update_map", k1_by,
+                      "point_distance")
+    count_k1_launches(mapper.icp, "solve", k1_by, "matcher")
     per_scan, counts, caps, valid, iters, merged = [], [], [], [], [], []
     last_merge = None
     warmup = {}
@@ -850,10 +871,14 @@ def drive_default(scans, priors):
         if i == 1:
             warmup = mapper.timer.totals()
     launches = read_counts()
+    launches["knn_brute[D=3,k=10,normals]"] = \
+        launches.get("knn_brute[D=3,k=10]", 0)
+    for who, n in k1_by.items():
+        launches[f"knn_brute[D=3,k=1,{who}]"] = n
     phases = mapper.timer.totals()
     steady = per_scan[2:]
     rec = {
-        "phase": "default", "config": None, "scans": len(scans),
+        "phase": phase, "config": config, "scans": len(scans),
         "valid_points_per_scan_min": min(valid),
         "per_scan_ms": [round(v, 2) for v in per_scan],
         "steady_ms_per_scan": statistics.mean(steady),
@@ -928,6 +953,89 @@ def check_default_map(mapper, rec, n_scans):
           "default: a reference normal is not unit length")
 
 
+def p2point_icp(bound: bool):
+    """The ``icp:`` section of the ``p2point`` phase: the default one with
+    the point-to-point minimizer, the median and surface-normal outlier
+    filters and a step filter; ``bound`` adds a bound checker wide enough
+    for the priors' noise."""
+    checkers = [
+        {"CounterTransformationChecker": {"maxIterationCount": 40}},
+        {"DifferentialTransformationChecker": {
+            "minDiffRotErr": 0.001, "minDiffTransErr": 0.001,
+            "smoothLength": 4}},
+    ]
+    if bound:
+        checkers.append({"BoundTransformationChecker": {
+            "maxRotationNorm": 0.8, "maxTranslationNorm": 1.0}})
+    return {
+        "readingDataPointsFilters": [
+            {"RandomSamplingDataPointsFilter": {"prob": 0.75}}],
+        "readingStepDataPointsFilters": [
+            {"RandomSamplingDataPointsFilter": {"prob": 0.9}}],
+        "referenceDataPointsFilters": [
+            {"SurfaceNormalDataPointsFilter": {"knn": 10}}],
+        "matcher": {"KDTreeMatcher": {"knn": 1}},
+        "outlierFilters": [
+            {"MedianDistOutlierFilter": {"factor": 3.0}},
+            {"SurfaceNormalOutlierFilter": {"maxAngle": 1.4}}],
+        "errorMinimizer": "PointToPointErrorMinimizer",
+        "transformationCheckers": checkers,
+    }
+
+
+def finish_no_radius_phase(mapper, rec, priors, poses):
+    """Accuracy, iteration time and launch gates shared by the phases that
+    search without a radius; emits the record."""
+    phase, n = rec["phase"], rec["scans"]
+    est = mapper.get_trajectory().poses
+    prior_ate = ate(priors[1:n], poses[1:n])
+    rec_ate = ate(est[1:], poses[1:n])
+    its = rec["icp_iterations"][1:]
+    launch = rec["launches"]
+    n_merges = sum(rec["merged"])  # the bootstrap scan included
+    last_n = int(mapper.map.local.capacity)
+    rec.update({
+        "prior_ate_m": prior_ate, "recovered_ate_m": rec_ate,
+        "mean_icp_iterations": statistics.mean(its),
+        "merges": n_merges,
+        "pairs_normals_last": last_n * last_n,
+        "pairs_normals_last_valid": rec["final_map_count"] ** 2,
+        "pairs_matcher_pass_last": rec["valid_points_per_scan_min"]
+        * rec["final_map_count"],
+    })
+    if "solve" in rec["phase_ms_steady_total"]:
+        # the per-scan step's solve phase, over the steady-state scans
+        rec["ms_per_icp_iteration"] = (
+            rec["phase_ms_steady_total"]["solve"] / sum(its[1:]))
+    else:
+        # the stepwise path records no phases: whole steady scans on the
+        # host clock, merges included
+        rec["host_ms_per_icp_iteration_merges_included"] = (
+            sum(rec["per_scan_ms"][2:]) / sum(its[1:]))
+    emit(rec)
+    check_default_map(mapper, rec, n)
+    check(rec_ate < prior_ate / 3.0,
+          f"{phase}: recovered ATE {rec_ate} not below a third of the "
+          f"prior's {prior_ate}")
+    check(statistics.mean(its) > 1.0, f"{phase}: the solver did not iterate")
+    check(launch["sweep_knn"] == 0 and launch["radius_pca[D=3]"] == 0,
+          f"{phase}: a sweep kernel ran on the path without a radius: "
+          f"{launch}")
+    # every count below is a reading of the wrapper's counter
+    pd = launch["knn_brute[D=3,k=1,point_distance]"]
+    mt = launch["knn_brute[D=3,k=1,matcher]"]
+    check(launch["knn_brute[D=3,k=10,normals]"] == n_merges,
+          f"{phase}: {n_merges} merges but "
+          f"{launch['knn_brute[D=3,k=10,normals]']} normals passes")
+    check(pd == n_merges - 1,
+          f"{phase}: {n_merges} merges (the first creates the map) but "
+          f"{pd} PointDistance searches")
+    check(mt >= n - 1, f"{phase}: fewer matcher passes than scans: {launch}")
+    check(pd + mt == launch.get("knn_brute[D=3,k=1]", 0),
+          f"{phase}: k = 1 launches outside PointDistance and the solve: "
+          f"{launch}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -986,54 +1094,31 @@ def main() -> int:
 
     # ---- default: no config at all, the same perturbed priors
     mapper, rec, last_merge = drive_default(scans, priors)
-    est = mapper.get_trajectory().poses
-    rec_ate = ate(est[1:], poses[1:])
-    its = rec["icp_iterations"][1:]
     df_launch = rec["launches"]
-    n_merges = sum(rec["merged"])  # the bootstrap scan included
-    k1 = df_launch.get("knn_brute[D=3,k=1]", 0)
-    df_launch["knn_brute[D=3,k=10,normals]"] = \
-        df_launch.get("knn_brute[D=3,k=10]", 0)
-    # PointDistance searches once per merge after the bootstrap scan; the
-    # other k = 1 launches are the matcher's passes
-    df_launch["knn_brute[D=3,k=1,point_distance]"] = n_merges - 1
-    df_launch["knn_brute[D=3,k=1,matcher]"] = k1 - (n_merges - 1)
-    last_n = int(mapper.map.local.capacity)
-    rec.update({
-        "prior_ate_m": prior_ate, "recovered_ate_m": rec_ate,
-        "mean_icp_iterations": statistics.mean(its),
-        "ms_per_gn_iteration": (rec["phase_ms_steady_total"]["solve"]
-                                / sum(its[1:])),
-        "merges": n_merges,
-        "pairs_normals_last": last_n * last_n,
-        "pairs_normals_last_valid": rec["final_map_count"] ** 2,
-        "pairs_matcher_pass_last": rec["valid_points_per_scan_min"]
-        * rec["final_map_count"],
-    })
-    emit(rec)
-    check_default_map(mapper, rec, len(scans))
-    check(rec_ate < prior_ate / 3.0,
-          f"default: recovered ATE {rec_ate} not below a third of the "
-          f"prior's {prior_ate}")
-    check(statistics.mean(its) > 1.0, "default: the solver did not iterate")
-    check(df_launch["sweep_knn"] == 0 and df_launch["radius_pca[D=3]"] == 0,
-          f"default: a sweep kernel ran on the path without a radius: "
-          f"{df_launch}")
-    check(n_merges >= 3 and df_launch["knn_brute[D=3,k=10,normals]"]
-          == n_merges,
-          f"default: {n_merges} merges but "
-          f"{df_launch['knn_brute[D=3,k=10,normals]']} normals passes")
-    check(df_launch["knn_brute[D=3,k=1,matcher]"] >= len(scans) - 1,
-          f"default: fewer matcher passes than scans: {df_launch}")
+    finish_no_radius_phase(mapper, rec, priors, poses)
+    check(rec["merges"] >= 3, f"default: {rec['merges']} merges")
     check(rec["map_capacity"] > MAP_CAPACITY,
           f"default: the map buffer stayed at {rec['map_capacity']}")
     check(last_merge is not None, "default: no merge after the first scan")
     check_last_merge(mapper, last_merge)
 
+    # ---- p2point: the rest of the ICP engine on the card, a few scans.
+    # Fused path first; then the same with a bound checker, which sends
+    # the scans through the stepwise path (its throw happens on the host)
+    n_pp = 6
+    mapper, rec, _ = drive_default(scans[:n_pp], priors[:n_pp],
+                                   {"icp": p2point_icp(False)}, "p2point")
+    pp_launch = rec["launches"]
+    finish_no_radius_phase(mapper, rec, priors, poses)
+    mapper, rec, _ = drive_default(scans[:4], priors[:4],
+                                   {"icp": p2point_icp(True)},
+                                   "p2point_bound")
+    finish_no_radius_phase(mapper, rec, priors, poses)
+
     # ---- the kernels line: launches are the main paths' (three configs)
     for e in entries:
         runs = {"identity": id_launch, "p2plane": p2_launch,
-                "default": df_launch}
+                "default": df_launch, "p2point": pp_launch}
         for name, counts in runs.items():
             e[f"launches_{name}"] = counts.get(e["name"], 0)
         e["launches"] = sum(e[f"launches_{name}"] for name in runs)

@@ -86,7 +86,7 @@ def mapper_state_from_numpy(mapper, map_arrays, ref_arrays=None, pose=None,
         # config's SurfaceNormal reference filter) replaces what set_local
         # computed, and the matcher's pack is rebuilt for it
         mapper.icp._ref = point_batch_from_numpy(*ref_arrays, device=dev)
-        mapper.icp._ref_presorted = mapper.icp.build_ref_pack(mapper.icp._ref)
+        mapper.icp._ref_pack = mapper.icp.build_ref_pack(mapper.icp._ref)
     mapper.map.new_local_available = False
     d = mapper.dim
     eye = np.eye(d + 1, dtype=np.float32)

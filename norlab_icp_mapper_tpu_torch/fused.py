@@ -14,7 +14,7 @@ state, so the Mapper's hot path is a single call per scan:
   bufs:  map       PointBatch -- local point cloud, fixed capacity w/ headroom
          ref       PointBatch -- reference-filtered map for ICP (only when
                                  the engine has referenceDataPointsFilters)
-         ref_sort  pack       -- what the matcher prepares once per reference
+         ref_pack  pack       -- what the matcher prepares once per reference
                                  (the sweep's sorted pack, or the packed
                                  valid references of the brute-force
                                  search), carried across scans, rebuilt
@@ -109,10 +109,10 @@ class FusedScanStep:
         if self.has_ref:
             bufs["ref"] = ref if ref is not None else local
         sref = bufs.get("ref", bufs["map"])
-        pack = self._m.icp._ref_presorted
+        pack = self._m.icp._ref_pack
         if pack is None or self._m.icp._ref is not sref:
             pack = self._m.icp.build_ref_pack(sref)
-        bufs["ref_sort"] = pack
+        bufs["ref_pack"] = pack
         meta = {
             "pose": torch.as_tensor(np.asarray(pose), dtype=torch.float32),
             "last_pose": torch.as_tensor(np.asarray(last_pose),
@@ -139,7 +139,7 @@ class FusedScanStep:
         ref_normals = m.icp.check_reference(ref)
         correction, overlap, iters, _resid = m.icp.solve(
             reading.positions, reading.mask, ref.positions, ref_normals,
-            ref.mask, ref_presorted=bufs.get("ref_sort"), draws=m.draws)
+            ref.mask, bufs["ref_pack"], draws=m.draws)
         corrected = correction @ est_pose
 
         cond = m.map_update_condition
@@ -174,8 +174,8 @@ class FusedScanStep:
         # the solve reference changed -- rebuild the matcher's pack (once
         # per merge instead of once per solve)
         sref = new.get("ref", new["map"])
-        with m.timer.phase("presort", dev):
-            new["ref_sort"] = m.icp.build_ref_pack(sref)
+        with m.timer.phase("ref_pack", dev):
+            new["ref_pack"] = m.icp.build_ref_pack(sref)
         return new
 
     def _step_impl(self, bufs, meta, scan, est_pose, stamp_s, is_mapping):

@@ -119,7 +119,7 @@ class ICPEngine:
         # the matcher's view of the reference, built once per map change:
         # the sorted pack of the sweep, or the packed references of the
         # brute-force search when the matcher has no maxDist
-        self._ref_presorted: Union[RefPack, KnnPack, None] = None
+        self._ref_pack: Union[RefPack, KnnPack, None] = None
         self.last_overflow: Optional[torch.Tensor] = None
         self.load_config(config if config is not None else dict(_DEFAULTS))
 
@@ -217,7 +217,7 @@ class ICPEngine:
         if len(self.reference_filters):
             ref = self.reference_filters.apply(ref, draws)
         self._ref = ref
-        self._ref_presorted = self.build_ref_pack(ref)
+        self._ref_pack = self.build_ref_pack(ref)
 
     def build_ref_pack(self, ref: PointBatch) -> Union[RefPack, KnnPack]:
         """What the configured matcher prepares once per change of the
@@ -236,14 +236,14 @@ class ICPEngine:
             self._ref = self._ref.pad_to(local.capacity)
         else:
             self._ref = local
-        self._ref_presorted = self.build_ref_pack(self._ref)
+        self._ref_pack = self.build_ref_pack(self._ref)
 
     def has_map(self) -> bool:
         return self._ref is not None
 
     def clear_map(self):
         self._ref = None
-        self._ref_presorted = None
+        self._ref_pack = None
 
     # -------------------------------------------------------------- solve
     def check_reference(self, ref: PointBatch) -> torch.Tensor:
@@ -259,12 +259,13 @@ class ICPEngine:
         return ref.descriptors.get("normals", torch.zeros_like(ref.positions))
 
     def solve(self, read_pos, read_mask, ref_pos, ref_norm, ref_mask,
-              ref_presorted: Union[RefPack, KnnPack, None] = None,
+              ref_pack: Union[RefPack, KnnPack],
               draws: Optional[DrawSource] = None):
         """The configured solve on raw tensors; see :func:`_icp_solve`.
-        ``draws`` feeds the step filters, if any."""
+        ``ref_pack`` is :meth:`build_ref_pack` of the reference; ``draws``
+        feeds the step filters, if any."""
         out = _icp_solve(
-            read_pos, read_mask, ref_pos, ref_norm, ref_mask, ref_presorted,
+            read_pos, read_mask, ref_pos, ref_norm, ref_mask, ref_pack,
             dim=self.dim, k=self.match_knn, max_dist=self.match_max_dist,
             outlier_filters=tuple(self.outlier_filters),
             minimizer=self.minimizer, max_iter=self.max_iter,
@@ -288,7 +289,7 @@ class ICPEngine:
         ref_normals = self.check_reference(ref)
         correction, overlap, iters, resid = self.solve(
             reading.positions, reading.mask, ref.positions, ref_normals,
-            ref.mask, self._ref_presorted, draws)
+            ref.mask, self._ref_pack, draws)
         if self.bound_checker is not None:
             # lpm's BoundTransformationChecker THROWS when the accumulated
             # transform exceeds the bound (registration aborts, the caller
@@ -327,15 +328,15 @@ def _rot_angle(R: torch.Tensor) -> torch.Tensor:
 
 
 def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
-               ref_presorted=None, *, dim, k, max_dist, outlier_filters,
+               ref_pack, *, dim, k, max_dist, outlier_filters,
                minimizer, max_iter, diff_checker, bound_checker=None,
                step_filters=None, draws=None, rematch_every=1):
     """One ICP registration: loop{ match -> weight -> minimize }.
 
-    ``ref_presorted`` optionally carries the matcher's pack for ``ref_pos``
-    / ``ref_mask`` (``ICPEngine.build_ref_pack``; the per-scan step caches
-    it across scans); otherwise it is built ONCE here -- either way it stays
-    out of the iteration loop.  ``step_filters`` (a ``FilterChain``) edits
+    ``ref_pack`` is the matcher's pack for ``ref_pos`` / ``ref_mask``
+    (``ICPEngine.build_ref_pack``, which picks its kind; built once per
+    change of the reference and cached across scans, so it stays out of the
+    iteration loop).  ``step_filters`` (a ``FilterChain``) edits
     the reading's mask at every matcher pass, drawing from ``draws``.
 
     Returns ``(correction (D+1,D+1) on the host, overlap 0-d, iterations
@@ -360,8 +361,6 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
         k = 1
 
     if bounded:
-        pack = (ref_presorted if ref_presorted is not None
-                else presort_ref(ref_pos, ref_mask))
         # sort the reading by x ONCE and run the WHOLE solve in sweep order:
         # rigid motion keeps the order near-sorted across iterations (window
         # spans are re-measured from the moved coordinates every call), and
@@ -372,11 +371,7 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
         q_order = torch.sort(q_x, stable=True).indices
         read_pos = read_pos[q_order]
         read_mask = read_mask[q_order]
-    else:
-        # no radius: every pair is examined, so nothing is sorted; the
-        # valid references are packed once for the kernel
-        pack = (ref_presorted if ref_presorted is not None
-                else pack_refs(ref_pos, ref_mask))
+    # (no radius: every pair is examined, so nothing is sorted)
     overflow_total = torch.zeros((), dtype=torch.int64, device=dev)
 
     def match_and_weigh(p):
@@ -394,10 +389,11 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
             d2, idx, overflow = sweep_knn(p, ref_pos, cur_mask, ref_mask,
                                           k=k, max_radius=float(max_dist),
                                           q_tile=1024, W=8192,
-                                          presorted=pack, assume_sorted=True)
+                                          presorted=ref_pack,
+                                          assume_sorted=True)
             overflow_total = overflow_total + overflow
         else:
-            d2, idx = knn(p, ref_pos, cur_mask, ref_mask, k=k, pack=pack)
+            d2, idx = knn(p, ref_pos, cur_mask, ref_mask, k=k, pack=ref_pack)
         w = (idx >= 0).to(f32)  # [N, k]
         safe = torch.clamp(idx, min=0)
         qn = ref_norm[safe]  # [N, k, D]

@@ -310,7 +310,7 @@ class Mapper:
                 self.last_pose_where_map_was_updated, last_t_s)
         else:
             bufs = {"map": self.map.local,
-                    "ref_sort": self.icp._ref_presorted}
+                    "ref_pack": self.icp._ref_pack}
             if self._fused.has_ref:
                 bufs["ref"] = self.icp._ref
 
@@ -330,7 +330,7 @@ class Mapper:
             self.map._known_count = int(new_bufs["map"].count())  # the read
             self.map.new_local_available = True
             self.icp._ref = new_bufs.get("ref", new_bufs["map"])
-            self.icp._ref_presorted = new_bufs["ref_sort"]
+            self.icp._ref_pack = new_bufs["ref_pack"]
             self.last_time_map_was_updated = int(timestamp_ns)
             self.last_pose_where_map_was_updated = self.pose
         # rolling window, driven by the corrected pose

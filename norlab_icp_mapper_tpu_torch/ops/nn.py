@@ -202,7 +202,6 @@ def knn(
     ref_mask: Optional[torch.Tensor] = None,  # bool[M]
     k: int = 1,
     max_radius: Optional[float] = None,  # None = unbounded
-    ref_tile: int = 2048,  # tile of the plain version
     pack: Optional[KnnPack] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest reference points for every query point.
@@ -221,8 +220,7 @@ def knn(
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn supports 1 <= k <= {MAX_K}; got k={k}")
     if not query.is_cuda:
-        return knn_plain(query, ref, query_mask, ref_mask, k, max_radius,
-                         ref_tile)
+        return knn_plain(query, ref, query_mask, ref_mask, k, max_radius)
     if pack is None:
         pack = pack_refs(ref, ref_mask)
     d2, idx = _knn_kernel(query.contiguous(), query_mask, pack, k)
@@ -236,28 +234,25 @@ knn.launches_by_shape = {}  # (D, k) -> launches
 
 
 def nn1(query, ref, query_mask=None, ref_mask=None, max_radius=None,
-        ref_tile: int = 2048, pack: Optional[KnnPack] = None):
+        pack: Optional[KnnPack] = None):
     """1-NN convenience wrapper: returns ``(dists2 [N], idx [N])``."""
     d2, idx = knn(query, ref, query_mask, ref_mask, k=1,
-                  max_radius=max_radius, ref_tile=ref_tile, pack=pack)
+                  max_radius=max_radius, pack=pack)
     return d2[:, 0], idx[:, 0]
 
 
 def radius_knn(query, ref, query_mask=None, ref_mask=None, k: int = 1,
                max_radius=None, q_tile: int = 2048, W: int = 8192):
-    """k-NN with an optional radius, same output contract as :func:`knn`:
-    without a radius, the brute-force search; with one, the sorted sweep
-    (``nn_sweep.sweep_knn``; the port has no grid hash).  The sweep's count
-    of overflowing tiles is left in ``radius_knn.last_overflow`` (a 0-d
-    tensor; ``None`` after a search without a radius): no cap is silent."""
+    """k-NN with an optional radius: without a radius, the brute-force
+    search; with one, the sorted sweep (``nn_sweep.sweep_knn``; the port has
+    no grid hash).  Returns ``(dists2, idx, overflow)``: the first two as
+    :func:`knn` returns them, ``overflow`` the sweep's count of overflowing
+    tiles as a 0-d tensor on the queries' device (0 without a radius, where
+    nothing is capped), so that no cap is silent."""
     if max_radius is None:
-        radius_knn.last_overflow = None
-        return knn(query, ref, query_mask, ref_mask, k=k)
+        d2, idx = knn(query, ref, query_mask, ref_mask, k=k)
+        return d2, idx, torch.zeros((), dtype=torch.int64,
+                                    device=query.device)
     from .nn_sweep import sweep_knn
-    d2, idx, radius_knn.last_overflow = sweep_knn(
-        query, ref, query_mask, ref_mask, k=k, max_radius=max_radius,
-        q_tile=q_tile, W=W)
-    return d2, idx
-
-
-radius_knn.last_overflow = None
+    return sweep_knn(query, ref, query_mask, ref_mask, k=k,
+                     max_radius=max_radius, q_tile=q_tile, W=W)

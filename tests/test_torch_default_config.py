@@ -126,7 +126,7 @@ def test_default_config_step_locked(rng):
         scan = scan_at(world, true)
         if i > 0:
             convert.mapper_state_from_numpy(mt, **_jax_state(mj))
-            assert isinstance(mt.icp._ref_presorted, KnnPack)
+            assert isinstance(mt.icp._ref_pack, KnnPack)
             assert "normals" in mt.icp._ref.descriptors
             assert "normals" not in mt.map.local.descriptors
         before = mt.get_map()["positions"]
@@ -253,7 +253,7 @@ def test_bootstrap_runs_the_reference_filter_and_the_map_only_grows(rng):
         caps.append(mt.map.local.capacity)
         assert mt.icp._ref.capacity == mt.map.local.capacity
         assert int(mt.icp._ref.count()) == counts[-1]
-        assert int(mt.icp._ref_presorted.n_valid) == counts[-1]
+        assert int(mt.icp._ref_pack.n_valid) == counts[-1]
     assert all(b >= a for a, b in zip(counts, counts[1:]))
     assert counts[-1] > 2 * counts[0]
     assert caps[-1] > caps[0]
@@ -276,8 +276,8 @@ def test_growing_the_buffer_keeps_the_reference(rng):
         mt.icp._ref.descriptors["normals"][:ref.capacity].numpy(),
         ref.descriptors["normals"].numpy())
     assert not bool(mt.icp._ref.mask[ref.capacity:].any())
-    assert int(mt.icp._ref_presorted.n_valid) == 300
-    assert mt.icp._ref_presorted.ref_c.shape[0] == 1024
+    assert int(mt.icp._ref_pack.n_valid) == 300
+    assert mt.icp._ref_pack.ref_c.shape[0] == 1024
 
 
 def test_convert_carries_the_ref_buffer_bit_for_bit(rng):
@@ -296,14 +296,14 @@ def test_convert_carries_the_ref_buffer_bit_for_bit(rng):
     np.testing.assert_array_equal(mt.icp._ref.descriptors["normals"].numpy(),
                                   desc["normals"])
     assert sorted(mt.icp._ref.descriptors) == sorted(desc)
-    pack = mt.icp._ref_presorted
+    pack = mt.icp._ref_pack
     assert isinstance(pack, KnnPack) and int(pack.n_valid) == int(mask.sum())
     np.testing.assert_array_equal(pack.ref_c[:int(pack.n_valid)].numpy(),
                                   pos[mask])
     # the per-scan step picks the carried buffers up as they are
     bufs, _ = mt._fused.init_state(mt.map.local, mt.icp._ref, mt.pose,
                                    mt.last_pose_where_map_was_updated, 0.0)
-    assert bufs["ref"] is mt.icp._ref and bufs["ref_sort"] is pack
+    assert bufs["ref"] is mt.icp._ref and bufs["ref_pack"] is pack
     assert bufs["ref"] is not bufs["map"]
     # without ref arrays the port recomputes the reference itself: the same
     # normals up to sign and near-tie neighbour choices

@@ -298,7 +298,7 @@ def test_unbounded_matcher(rng, monkeypatch, dim, rematch):
     rj, rt, et = _run_both(cfg, world, normals, reading, dim, monkeypatch,
                            rematch)
     from norlab_icp_mapper_tpu_torch.ops.nn import KnnPack
-    assert isinstance(et._ref_presorted, KnnPack)
+    assert isinstance(et._ref_pack, KnnPack)
     assert int(et.last_overflow) == 0
     Tt = _assert_same_registration(rj, rt, dim)
     rec = Tt @ off
@@ -428,7 +428,7 @@ def test_bound_checker_stops_and_throws_like_the_reference(rng, monkeypatch,
         ref = et._ref
         T, _, iters, _ = et.solve(t.positions, t.mask, ref.positions,
                                   ref.descriptors["normals"], ref.mask,
-                                  et._ref_presorted)
+                                  et._ref_pack)
         assert iters < 4
 
 

@@ -165,7 +165,8 @@ def test_ties_go_to_the_lower_index(rng):
     # mask that removes some first twins: the survivor is found
     rm = np.ones(128, bool)
     rm[:10] = False
-    d2_, i2_ = _port(pts, pts, None, rm, 2, ref_tile=48)
+    d2_, i2_ = tnn.knn_plain(_t(pts), _t(pts), None, _t(rm), k=2, ref_tile=48)
+    d2_, i2_ = d2_.numpy(), i2_.numpy()
     np.testing.assert_array_equal(i2_[:10, 0], np.arange(10) + 64)
     np.testing.assert_array_equal(i2_[10:64, 0], np.arange(10, 64))
     np.testing.assert_array_equal(d2_[:, 0], 0.0)
@@ -234,14 +235,15 @@ def test_wrappers_on_the_cpu_launch_nothing(rng):
     np.testing.assert_array_equal(d1.numpy(), d[:, 0].numpy())
     np.testing.assert_array_equal(i1.numpy(), i[:, 0].numpy())
     # radius_knn: without a radius the brute-force search, with one the sweep
-    d2, i2 = tnn.radius_knn(q, r, k=3)
-    assert tnn.radius_knn.last_overflow is None
+    d2, i2, ov2 = tnn.radius_knn(q, r, k=3)
+    assert ov2.ndim == 0 and int(ov2) == 0
     np.testing.assert_array_equal(i2.numpy(), i.numpy())
-    d3, i3 = tnn.radius_knn(q, r, k=3, max_radius=1.0, q_tile=128, W=200)
+    d3, i3, ov3 = tnn.radius_knn(q, r, k=3, max_radius=1.0, q_tile=128,
+                                 W=200)
     ds, is_, ov = nn_sweep.sweep_knn(q, r, k=3, max_radius=1.0, q_tile=128,
                                      W=200)
     np.testing.assert_array_equal(i3.numpy(), is_.numpy())
-    assert int(tnn.radius_knn.last_overflow) == int(ov) == 0
+    assert int(ov3) == int(ov) == 0
     # inside the radius the sweep and the brute-force search agree
     hit = i3 >= 0
     np.testing.assert_array_equal(i3[hit].numpy(), i[hit].numpy())
