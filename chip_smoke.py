@@ -31,8 +31,14 @@ holds every kernel shape against its plain version on a sparser seeded
 cloud of the same capacities where no window overflows, which is where the
 search is exact.  The brute-force k-NN kernel is held against its plain
 version on a map built the way the default config builds it (the first scan
-whole, every second scan gated at 0.15 m from the map), at the three shapes
-that path gives it, plus a 2-D and two ragged cases.
+whole, every second scan gated at 0.15 m from the map) with twins planted
+across the borders of its reference ranges, at the three shapes that path
+gives it and at every split of the references the wrapper can choose, plus
+a 2-D case, ragged ones, k = 32, a self-search against the general call, one
+valid query, no valid reference and fewer references than one range.  The
+sweep is also run with windows of one chunk, of exactly one chunk's length
+and of four chunks on clouds of twins (ties across chunk borders), where
+windows overflow and where they do not.
 
 In the ``kernels`` line, ``replaces`` gives file:line inside the JAX
 reference package that stands beside the port.
@@ -169,13 +175,18 @@ def ate(est, true) -> float:
 # timing helpers
 # ---------------------------------------------------------------------------
 
-def time_cuda(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events."""
+MIN_REPS_UNDER_1MS = 30
+
+
+def time_cuda_stats(fn, reps: int = 7, warmup: int = 2):
+    """``(min, median, max)`` milliseconds of ``fn()`` between CUDA events;
+    what turns out to take under 1 ms is repeated at least
+    ``MIN_REPS_UNDER_1MS`` times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(reps):
+    while len(out) < reps:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -183,7 +194,42 @@ def time_cuda(fn, reps: int = 7, warmup: int = 2) -> float:
         b.record()
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
-    return statistics.median(out)
+        if len(out) == reps and statistics.median(out) < 1.0:
+            reps = max(reps, MIN_REPS_UNDER_1MS)
+    return min(out), statistics.median(out), max(out)
+
+
+def time_cuda(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` between CUDA events."""
+    return time_cuda_stats(fn, reps, warmup)[1]
+
+
+def sm_clock_under_load(fn, seconds: float = 0.6):
+    """The SM clock in MHz as ``nvidia-smi`` reads it while ``fn`` is
+    launched in a loop (the highest of the readings taken after the first
+    0.2 s), or None if it gives no reading."""
+    import threading
+    readings, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            r = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True)
+            readings.append((time.time(), r.stdout.strip().splitlines()))
+    th = threading.Thread(target=poll)
+    t0 = time.time()
+    th.start()
+    while time.time() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    vals = [float(v[0]) for t, v in readings
+            if v and t - t0 > 0.2 and v[0].replace(".", "").isdigit()]
+    return max(vals) if vals else None
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +269,11 @@ def phase_build():
         regs[name] = [_ptxas_line(ln) for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln][:36]
+    for name, log in _build.build_logs.items():
+        spills = [ln for ln in log.splitlines() if "bytes spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        check(not spills, f"build: {name}.cu spills registers: {spills[:2]}")
+        check("bytes spill" in log, f"build: no ptxas report for {name}.cu")
     emit({"phase": "build", "seconds": round(secs, 2),
           "sources": [f"norlab_icp_mapper_tpu_torch/csrc/{n}.cu"
                       for n in _build.KERNEL_SOURCES], "ptxas": regs})
@@ -240,7 +291,7 @@ def _sorted_padded(q, qm, q_tile):
 
 
 def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
-               replaces_line, exact=False):
+               replaces_line, exact=False, overflows=False):
     """One sweep_knn shape: wrapper against plain wrapper, then the kernel
     launch alone against the plain search alone, timed.  ``exact`` demands
     that no window overflows, so the result is the true radius k-NN."""
@@ -265,6 +316,9 @@ def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
     if exact:
         check(int(ov) == 0, f"{name}: {int(ov)} tiles overflow on the cloud "
                             "made for the exact case")
+    if overflows:
+        check(int(ov) > 0, f"{name}: no tile overflows on the cloud made "
+                           "for the overflowing case")
     r2 = float(np.float32(radius) * np.float32(radius))
     fin = torch.isfinite(d_p)
     check(bool((torch.isfinite(d_k) == fin).all()),
@@ -307,11 +361,28 @@ def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
     r_t = torch.tensor(float(np.float32(radius)), device=query.device)
     Wc = min(W, ref.shape[0])
     t_start, t_end, live, overflow, b_start, b_end = S.sweep_windows(
-        qx_s, qm_s, pack, r_t, q_tile, Wc, S._KERNEL_BLOCK)
+        qx_s, qm_s, pack, r_t, q_tile, Wc, S._BLOCK_QUERIES)
     n_pad = q_s.shape[0]
     before = (S.sweep_knn.launches, dict(S.sweep_knn.launches_by_shape))
-    ms = time_cuda(lambda: S._search_kernel(q_s, qm_s, pack.ref_s, b_start,
-                                            b_end, r2, k, n_pad))
+    # the kernel's chunks and their merge, walked in plain tensor
+    # operations on the kernel's own windows: the kernel's d2 must equal
+    # them bit for bit, and its indices are the pack's fourth lane at the
+    # plain positions
+    chunks, chunk = S.chunking(max(Wc, 1))
+    d_c, pos_c = S.search_chunked_plain(q_s, qm_s, pack.ref_s, b_start, b_end,
+                                        r2, k, S._BLOCK_QUERIES, chunks, chunk)
+    d_l, i_l = S._search_kernel(q_s, qm_s, pack.ref_s, b_start, b_end, r2, k,
+                                n_pad, Wc)
+    check(torch.equal(d_l, d_c), f"{name}: the kernel's d2 differs from the "
+                                 "chunked plain search on the same windows")
+    ids_c = torch.where(pos_c >= 0,
+                        pack.ref_order[pos_c.clamp(min=0).long()],
+                        torch.full_like(pos_c, -1).long())
+    idx_mismatch = int((i_l != ids_c).sum())
+    check(idx_mismatch == 0, f"{name}: {idx_mismatch} indices differ from "
+                             "the chunked plain search on the same windows")
+    lo_ms, ms, hi_ms = time_cuda_stats(lambda: S._search_kernel(
+        q_s, qm_s, pack.ref_s, b_start, b_end, r2, k, n_pad, Wc))
     wrapper_ms = time_cuda(lambda: S.sweep_knn(q_srt, ref, qm_srt, rmask, **kw))
     plain_ms = time_cuda(lambda: S._search_plain(
         q_s, qm_s, pack.ref_s, t_start, t_end, live, r2, k, q_tile),
@@ -319,13 +390,15 @@ def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
 
     # the bound, from this run's windows
     spans = (b_end - b_start)
-    valid_per_block = qm_s.view(-1, S._KERNEL_BLOCK).sum(1)
+    valid_per_block = qm_s.view(-1, S._BLOCK_QUERIES).sum(1)
     pairs = int((spans * valid_per_block).sum())
     flops_pair = 3 * dim  # D subtractions, D products, D-1 sums, 1 compare
     n_valid_ref = int(pack.n_valid)
     n = query.shape[0]
-    bytes_moved = (n * dim * 4 + n + n_valid_ref * dim * 4
-                   + 2 * 4 * spans.shape[0] + n * k * 8)
+    # queries and their mask, the packed sorted references (16 bytes each),
+    # the windows, and per query k distances (f32) and k indices (i64)
+    bytes_moved = (n * dim * 4 + n + n_valid_ref * 16
+                   + 2 * 4 * spans.shape[0] + n * k * 12)
     ops_ms = pairs * flops_pair / PEAK_F32_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES * 1e3
     live_spans = spans[valid_per_block > 0].float()
@@ -334,10 +407,12 @@ def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
         "phase": "kernel_case", "case": name, "D": dim, "k": k,
         "N": n, "M": ref.shape[0], "valid_queries": int(qmask.sum()),
         "valid_refs": n_valid_ref, "radius": radius, "q_tile": q_tile,
-        "W": W, "overflow": int(ov), "overflow_plain": int(ov_p),
+        "W": W, "chunks": chunks, "chunk": chunk,
+        "overflow": int(ov), "overflow_plain": int(ov_p),
         "max_abs_err_d2": max_err, "tolerance_d2": tol,
         "max_abs_err_d2_from_idx": idx_err,
         "frac_idx_equal": frac_same, "kernel_ms": ms,
+        "kernel_ms_min_med_max": [lo_ms, ms, hi_ms],
         "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "plain_wrapper_ms": plain_wrapper_ms, "pairs": pairs,
         "gpairs_per_s": pairs / (ms * 1e-3) / 1e9,
@@ -413,8 +488,8 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool,
     max_abs = float((acc_k - acc_p).abs().max())
     check(max_rel <= 1e-5, f"{name}: moment rows differ by {max_rel} of "
                            "their magnitude (> 1e-5)")
-    ms = time_cuda(lambda: P._moments_kernel(q_s, qm_s, ref_s, b_start,
-                                             b_end, r2, n_pad))
+    lo_ms, ms, hi_ms = time_cuda_stats(lambda: P._moments_kernel(
+        q_s, qm_s, ref_s, b_start, b_end, r2, n_pad))
     wrapper_ms = time_cuda(lambda: P.radius_pca(
         pts, pts, mask, mask, max_radius=radius, q_tile=q_tile, W=W))
     plain_ms = time_cuda(lambda: P._moments_plain(
@@ -443,7 +518,8 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool,
         "max_rel_err_moments": max_rel, "tolerance_rel": 1e-5,
         "max_abs_err_cov": float((cov_k - cov_p).abs().max()),
         "mean_neighbours": hits / max(n_valid, 1),
-        "kernel_ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "kernel_ms": ms, "kernel_ms_min_med_max": [lo_ms, ms, hi_ms],
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "pairs": pairs, "hits": hits,
         "gpairs_per_s": pairs / (ms * 1e-3) / 1e9,
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
@@ -492,17 +568,16 @@ def library_knn(query, ref_valid, k, chunk=8192):
     return out
 
 
-def knn_case(name, query, qmask, ref, rmask, k, role=None):
-    """One knn shape: kernel against plain version (bit-identical d2,
-    indices equal except at exact ties, d2 recomputed from the returned
-    index equal to the returned d2, rows ascending, -1 exactly where the
-    plain version has it), then timed."""
-    from norlab_icp_mapper_tpu_torch.ops import nn as N
-    dim = query.shape[1]
-    before = (N.knn.launches, dict(N.knn.launches_by_shape))
-    d_k, i_k = N.knn(query, ref, qmask, rmask, k=k)
-    d_p, i_p = N.knn_plain(query, ref, qmask, rmask, k=k)
+DISPATCH_SLOTS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add and one to rank, unfused
+LANES = 132 * 4 * 32  # SMs x schedulers x lanes of an H100 SXM
 
+
+def _hold_knn(name, d_k, i_k, d_p, i_p, query, qmask, ref, rmask, k):
+    """One knn result against the plain version's: d2 bit-identical, -1
+    exactly where the plain version has it, rows ascending, d2 recomputed
+    from every returned index equal to the returned d2, neighbours valid;
+    returns (max |d2 - plain|, indices differing at exact ties)."""
+    dim = query.shape[1]
     fin = torch.isfinite(d_p)
     check(bool((torch.isfinite(d_k) == fin).all()),
           f"{name}: validity pattern differs from the plain version")
@@ -532,54 +607,103 @@ def knn_case(name, query, qmask, ref, rmask, k, role=None):
               f"{name}: an invalid query has a neighbour")
     # with d2 bit-identical and every returned index holding its returned
     # d2, an index that differs from the plain version's is an exact tie
-    same = i_k == i_p
-    differ = ~same & fin
+    return max_err, int(((i_k != i_p) & fin).sum())
 
-    # kernel launch alone (the pack built once, as the matcher has it),
-    # the whole wrapper, the plain version and the library yardstick, each
-    # a median between CUDA events after a warm-up
+
+def knn_case(name, query, qmask, ref, rmask, k, role=None,
+             splits=(1, 2, 4, 8), time_it=True):
+    """One knn shape: the wrapper, and the kernel at every split of the
+    references the wrapper can choose, against the plain version (see
+    ``_hold_knn``); a cloud searched against itself also through the
+    general call; then timed."""
+    from norlab_icp_mapper_tpu_torch.ops import nn as N
+    dim = query.shape[1]
+    before = (N.knn.launches, dict(N.knn.launches_by_shape))
+    self_search = query is ref and qmask is rmask
+    d_k, i_k = N.knn(query, ref, qmask, rmask, k=k)
+    d_p, i_p = N.knn_plain(query, ref, qmask, rmask, k=k)
+    max_err, ties = _hold_knn(name, d_k, i_k, d_p, i_p, query, qmask, ref,
+                              rmask, k)
     pack = N.pack_refs(ref, rmask)
     qc = query.contiguous()
-    ms = time_cuda(lambda: N._knn_kernel(qc, qmask, pack, k), reps=5)
+    qrows = N.query_rows(qmask)
+    chosen = N.pick_splits(query.shape[0], k)
+    check(chosen in splits, f"{name}: the wrapper's split {chosen} is not "
+                            f"among the splits held against the plain version")
+    ties_by_split = {}
+    for sp in splits:
+        for as_self in ([False, True] if self_search else [False]):
+            d_s, i_s = N._knn_kernel(qc, qrows, pack, k, self_search=as_self,
+                                     splits=sp)
+            _, t = _hold_knn(f"{name}[splits={sp},self={as_self}]", d_s, i_s,
+                             d_p, i_p, query, qmask, ref, rmask, k)
+            ties_by_split[f"{sp}{'s' if as_self else ''}"] = t
+    ref_valid = ref if rmask is None else ref[rmask]
+    q_valid = query if qmask is None else query[qmask]
+    n_vq, n_vr = q_valid.shape[0], ref_valid.shape[0]
+    n, m = query.shape[0], ref.shape[0]
+    pairs = n_vq * n_vr
+    flops_pair = 3 * dim  # D subtractions, D products, D-1 sums, 1 compare
+    # queries and their row list, the packed valid references (16 bytes
+    # each) and the two counts, and per query k distances (f32) and k
+    # indices (i64)
+    bytes_moved = (n * dim * 4 + (n * 4 if qmask is not None else 0)
+                   + n_vr * 16 + 16 + n * k * 12)
+    ops_ms = pairs * flops_pair / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    rec = {
+        "phase": "kernel_case", "case": name, "kernel": "knn_brute",
+        "D": dim, "k": k, "N": n, "M": m, "valid_queries": n_vq,
+        "valid_refs": n_vr, "self_search": self_search,
+        "splits_chosen": chosen, "max_abs_err_d2": max_err,
+        "idx_differing_at_exact_ties": ties,
+        "idx_differing_at_exact_ties_by_split": ties_by_split,
+        "frac_idx_equal": float((i_k == i_p).float().mean()),
+        "pairs": pairs, "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_arithmetic": f"{n_vq} valid queries x {n_vr} valid refs x "
+                            f"{flops_pair} f32 operations / 67 TFLOP/s; "
+                            f"{bytes_moved} bytes / 3.35 TB/s",
+    }
+    if not time_it:
+        emit(rec)
+        N.knn.launches, N.knn.launches_by_shape = before
+        return None
+
+    # kernel launch alone (pack and query rows built, as the callers have
+    # them), the whole wrapper, the plain version and the library
+    # yardstick, each between CUDA events after a warm-up
+    def launch(sp=chosen):
+        return N._knn_kernel(qc, qrows, pack, k, self_search=self_search,
+                             splits=sp)
+    lo, ms, hi = time_cuda_stats(launch, reps=7)
+    by_split = {sp: time_cuda(lambda: launch(sp), reps=5) for sp in splits}
     wrapper_ms = time_cuda(lambda: N.knn(query, ref, qmask, rmask, k=k),
                            reps=5)
     plain_ms = time_cuda(lambda: N.knn_plain(query, ref, qmask, rmask, k=k),
                          reps=2, warmup=1)
-    ref_valid = ref if rmask is None else ref[rmask]
-    q_valid = query if qmask is None else query[qmask]
-    n_vq, n_vr = q_valid.shape[0], ref_valid.shape[0]
     library_ms = None
     if n_vr > 0 and n_vq > 0:
         library_ms = time_cuda(lambda: library_knn(q_valid, ref_valid, k),
                                reps=3, warmup=1)
-    N.knn.launches, N.knn.launches_by_shape = before
-
-    n, m = query.shape[0], ref.shape[0]
-    pairs = n_vq * n_vr
-    flops_pair = 3 * dim  # D subtractions, D products, D-1 sums, 1 compare
-    # queries + their mask, the packed valid references + their ids and
-    # count, and per query k distances (f32) and k indices (i64)
-    bytes_moved = (n * dim * 4 + (n if qmask is not None else 0)
-                   + n_vr * (dim * 4 + 4) + 8 + n * k * 12)
-    ops_ms = pairs * flops_pair / PEAK_F32_FLOPS * 1e3
-    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
-    emit({
-        "phase": "kernel_case", "case": name, "kernel": "knn_brute",
-        "D": dim, "k": k, "N": n, "M": m, "valid_queries": n_vq,
-        "valid_refs": n_vr, "max_abs_err_d2": max_err,
-        "max_abs_err_d2_from_idx": idx_err,
-        "frac_idx_equal": float(same.float().mean()),
-        "idx_differing_at_exact_ties": int(differ.sum()),
-        "kernel_ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
+    rec.update({
+        "kernel_ms": ms, "kernel_ms_min_med_max": [lo, ms, hi],
+        "kernel_ms_by_split": by_split, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
         "library": "chunked torch.cdist + torch.topk over the valid "
                    "references (8192 queries per chunk)",
-        "pairs": pairs, "gpairs_per_s": pairs / (ms * 1e-3) / 1e9,
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "bound_arithmetic": f"{n_vq} valid queries x {n_vr} valid refs x "
-                            f"{flops_pair} f32 operations / 67 TFLOP/s; "
-                            f"{bytes_moved} bytes / 3.35 TB/s",
+        "gpairs_per_s": pairs / (ms * 1e-3) / 1e9,
     })
+    if role == "point_distance":
+        # the dispatch ceiling of the unfused form: lanes x clock / 9
+        mhz = sm_clock_under_load(launch)
+        rec["sm_clock_under_load_mhz"] = mhz
+        if mhz:
+            ceil = LANES * mhz * 1e6 / DISPATCH_SLOTS_PER_PAIR
+            rec["dispatch_ceiling_gpairs_per_s"] = ceil / 1e9
+            rec["share_of_dispatch_ceiling"] = \
+                pairs / (ms * 1e-3) / ceil
+    emit(rec)
+    N.knn.launches, N.knn.launches_by_shape = before
     if role is None:
         return None
     return {
@@ -594,10 +718,20 @@ def knn_case(name, query, qmask, ref, rmask, k, role=None):
 
 
 def knn_cases(scans, poses, rng, dev):
-    """The brute-force kernel at the default path's three shapes, then a
-    2-D case and two ragged ones."""
+    """The brute-force kernel at the default path's three shapes on a
+    map-sized cloud with twins planted across every range border, then a
+    2-D case, ragged ones and the corner cases of the schedule."""
     import norlab_icp_mapper_tpu_torch as nt
     world = default_like_map(scans, poses)
+    # twins astride the borders of 2, 4 and 8 ranges (the valid points are
+    # packed in this order, so the packed position is the row): the lower
+    # index must win on both sides
+    n_w = world.shape[0]
+    for sp in (2, 4, 8):
+        per = -(-(-(-n_w // sp)) // 16) * 16
+        for b in range(per, n_w - 2, per):
+            world[b] = world[b - 1]
+            world[b + 1] = world[b - 2]
     cap = nt.bucket_capacity(world.shape[0] + SCAN_CAPACITY)
     mp = nt.PointBatch.from_numpy(world, capacity=cap, device=dev)
     sc = nt.PointBatch.from_numpy(scans[-1], capacity=SCAN_CAPACITY,
@@ -619,17 +753,29 @@ def knn_cases(scans, poses, rng, dev):
         rng.uniform(-20, 20, size=(7000, 2)).astype(np.float32)).to(dev)
     knn_case("knn_2d_k5", q2, torch.from_numpy(rng.random(5000) > 0.1).to(dev),
              r2, torch.from_numpy(rng.random(7000) > 0.2).to(dev), 5)
-    # ragged: N and M multiples of neither the block (128) nor the tile (256)
+    # ragged: N and M multiples of neither the block (128) nor the tile
     q3 = torch.from_numpy(rng.normal(size=(1237, 3)).astype(np.float32)).to(dev)
     r3 = torch.from_numpy(rng.normal(size=(1531, 3)).astype(np.float32)).to(dev)
     # duplicates, so that exact ties occur
     r3[700:760] = r3[100:160]
-    knn_case("knn_ragged_k10", q3, None, r3,
-             torch.from_numpy(rng.random(1531) > 0.3).to(dev), 10)
+    rm3 = torch.from_numpy(rng.random(1531) > 0.3).to(dev)
+    knn_case("knn_ragged_k10", q3, None, r3, rm3, 10)
+    knn_case("knn_ragged_k32", q3, None, r3, rm3, 32, time_it=False)
+    knn_case("knn_ragged_self_k32", r3, rm3, r3, rm3, 32, time_it=False)
     few = torch.zeros(1531, dtype=torch.bool, device=dev)
     few[[3, 400, 401, 777, 1000, 1500, 1530]] = True
+    # 7 references: fewer than k, and fewer than one of 8 ranges
     knn_case("knn_ragged_7_valid_refs_k10", q3,
              torch.from_numpy(rng.random(1237) > 0.5).to(dev), r3, few, 10)
+    knn_case("knn_7_valid_refs_k1", q3, None, r3, few, 1, time_it=False)
+    one_q = torch.zeros(1237, dtype=torch.bool, device=dev)
+    one_q[611] = True
+    for k in (1, 10):
+        knn_case(f"knn_one_valid_query_k{k}", q3, one_q, r3, rm3, k,
+                 time_it=False)
+        knn_case(f"knn_no_valid_reference_k{k}", q3, None, r3,
+                 torch.zeros(1531, dtype=torch.bool, device=dev), k,
+                 time_it=False)
     return entries
 
 
@@ -677,6 +823,20 @@ def phase_kernels(scans, poses, seed):
     entries.append(sweep_case("dynamic_points_angular", map_ang, mp.mask,
                               scan_ang, sc.mask & ~drop, 1, 0.02, 1024, 1024,
                               112))
+    # windows of one chunk, of exactly one chunk's length and of W (four
+    # chunks) on the dense hall, every second map point a twin of its
+    # predecessor (twins are neighbours in the sorted order, so chunk
+    # borders split them): the windows overflow and the result still equals
+    # the plain version's
+    twin_pos = mp.positions.clone()
+    twin_pos[1::2] = twin_pos[0:-1:2]
+    twin_mask = mp.mask.clone()
+    twin_mask[1::2] = twin_mask[0:-1:2]
+    for W in (1024, 2048, 8192):
+        sweep_case(f"hall_twins_k3_W{W}", scan_m.positions, smask, twin_pos,
+                   twin_mask, 3, 2.0, 1024, W, 112, overflows=True)
+    sweep_case("hall_twins_k1_W8192", scan_m.positions, smask, twin_pos,
+               twin_mask, 1, 2.0, 1024, 8192, 112, overflows=True)
     entries.append(pca_case("surface_normals_self", mp.positions, mp.mask,
                             1.0, 1024, 2048, on_path=True))
     p2 = torch.from_numpy(
@@ -707,6 +867,14 @@ def exact_cases(rng, dev):
     for k in (1, 3):
         sweep_case(f"exact_icp_matcher_k{k}", sc.positions, sc.mask,
                    mp.positions, mp.mask, k, 2.0, 1024, 8192, 112, exact=True)
+    # the same cloud with twins, windows of one chunk (tiles of 256 queries)
+    # and of two: exact, ties across the chunk border included
+    twin_pos = mp.positions.clone()
+    twin_pos[1::2] = twin_pos[0:-1:2]
+    sweep_case("exact_twins_k3_one_chunk", sc.positions, sc.mask, twin_pos,
+               mp.mask, 3, 2.0, 256, 2048, 112, exact=True)
+    sweep_case("exact_twins_k3_two_chunks", sc.positions, sc.mask, twin_pos,
+               mp.mask, 3, 2.0, 1024, 4096, 112, exact=True)
     # beams spread evenly over the lidar's field of view
     lo, hi = np.array([-np.pi, -0.44]), np.array([np.pi, 0.26])
     beams_map = (lo + rng.random((n_map, 2)) * (hi - lo)).astype(np.float32)

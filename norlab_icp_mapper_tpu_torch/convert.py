@@ -15,7 +15,7 @@ import torch
 
 from .draws import resolve_device
 from .points import PointBatch
-from .ops.nn_sweep import RefPack
+from .ops.nn_sweep import RefPack, pack_rows4
 
 __all__ = ["point_batch_from_numpy", "presort_pack_from_numpy",
            "mapper_state_from_numpy"]
@@ -48,17 +48,20 @@ def point_batch_from_numpy(positions: np.ndarray, mask: np.ndarray,
 def presort_pack_from_numpy(ref_s, ref_mask_s, ref_xs, ref_order, ref_planar,
                             center, device="cuda") -> RefPack:
     """The six fields of the JAX package's ``presort_ref`` -> the port's
-    ``RefPack``.  ``ref_planar`` (the ``[8, M_pad]`` layout of the TPU
-    kernel) has no counterpart and is ignored; the count of valid refs takes
-    its place."""
+    ``RefPack``.  The sorted coordinates go into the port's ``f32[M, 4]``
+    layout with ``ref_order`` in the fourth lane.  ``ref_planar`` (the
+    ``[8, M_pad]`` layout of the TPU kernel) has no counterpart and is
+    ignored; the count of valid refs takes its place."""
     del ref_planar
     dev = resolve_device(device)
     mask = torch.from_numpy(np.array(ref_mask_s, dtype=bool)).to(dev)
+    order = torch.from_numpy(np.array(ref_order, dtype=np.int64)).to(dev)
+    coords = torch.from_numpy(np.array(ref_s, dtype=np.float32)).to(dev)
     return RefPack(
-        torch.from_numpy(np.array(ref_s, dtype=np.float32)).to(dev),
+        pack_rows4(coords, order),
         mask,
         torch.from_numpy(np.array(ref_xs, dtype=np.float32)).to(dev),
-        torch.from_numpy(np.array(ref_order, dtype=np.int64)).to(dev),
+        order,
         mask.sum(),
         torch.from_numpy(np.array(center, dtype=np.float32)).to(dev))
 

@@ -17,26 +17,46 @@ Hopper; it replaces the Pallas TPU kernel ``_kernel`` (``ops/nn_pallas.py``
 of the JAX package, launched by ``_knn_planar`` and wrapped by
 ``knn_pallas``).
 
-* What bounds it on an H100: operations.  A pair costs D subtractions, D
-  products, D-1 sums and a compare in f32; every query and reference is read
-  once, ``12 k`` bytes are written per query.
-* What the design does about it: nothing clever yet.  One thread per query,
-  blocks of 128 queries, the references staged through shared memory in
-  tiles of 256, the k best kept sorted in registers (buckets of 1, 4, 8, 16,
-  32).  It examines every pair; blocks without a valid query read nothing.
+* What bounds it on an H100: operations, and among them instruction dispatch.
+  A pair costs 3 subtractions, 3 products and 2 sums in f32, each rounded on
+  its own (so that the kernel agrees with the plain version bit for bit),
+  plus its ranking; a scheduler dispatches one instruction per clock, so the
+  card cannot pass lanes x clock / (instructions per pair).  Every query and
+  reference is read once, ``12 k`` bytes are written per query: bytes are
+  far below that.
+* What the design does about it.  References are packed as ``f32[M, 4]``
+  (x, y, z, the bits of the original index; valid ones in front, their count
+  on the device: :func:`pack_refs`), so a staged reference is one 128-bit
+  load and no index is gathered at the end.  A thread holds several queries
+  in registers and uses every loaded reference for all of them.  Only valid
+  queries get a thread (:func:`valid_first` lists them without a host read;
+  a cloud searched against itself reads its queries from the pack).  The
+  references are cut into ``S`` ascending ranges searched by the ``S``
+  blocks of a thread-block cluster and merged in distributed shared memory
+  (:func:`pick_splits` chooses ``S`` on the host from N and k alone).  Tiles
+  arrive by ``cp.async`` in a two-deep ring.  At k = 1 the loop keeps a
+  running minimum and recovers the index afterwards; at k > 1 the sorted
+  insertion runs only for a group of references that holds a candidate, and
+  a cloud searched against itself first takes the k-th distance among the
+  block's own stretch of the array as a gate, because points in scan order
+  would otherwise refill every list at each approach of the scan.
+* Tensor cores are not used: the product has a depth of 3, and the expanded
+  form ``|q|^2 + |r|^2 - 2 q.r`` in TF32 (or split three ways) loses the
+  digits that the tie rule, PointDistance's 0.15 m gate and bit-identity
+  with the plain version need at coordinates of tens of metres.
 * Differences from the TPU kernel, all deliberate: the distance is
   subtract-first exact f32 (the TPU kernel ranks by ``|r|^2 - 2 q.r`` from a
   matrix product, whose rounding error grows as ``eps * |x|^2``); no planar
-  ``[8, N]`` layout and no 1e9 sentinel coordinates (valid references are
-  packed to the front by :func:`pack_refs`, and the kernel reads their count
-  from device memory, so no count comes to the host); nothing is padded to
+  ``[8, N]`` layout and no 1e9 sentinel coordinates; nothing is padded to
   1024; ties go to the lower index; ``k`` is at most ``MAX_K`` and a larger
   one raises.
 
 On a CPU tensor ``knn`` runs :func:`knn_plain`, the same function in
 ordinary tensor operations, which the tests and the on-card comparison use
 on any device.  A CUDA tensor never takes it from ``knn``: the kernel
-launches or the call raises.
+launches or the call raises.  :func:`knn_schedule_plain` walks the kernel's
+schedule (pack, query list, ranges, merge) in ordinary tensor operations;
+the tests and the on-card comparison hold it against :func:`knn_plain`.
 """
 from __future__ import annotations
 
@@ -46,79 +66,148 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .nn_sweep import _check_kernel_args, _pair_d2
+from .nn_sweep import (_KERNEL_BLOCK, _check_kernel_args, _pair_d2,
+                       merge_ranges_plain, pack_rows4)
 
 __all__ = ["knn", "nn1", "radius_knn", "knn_plain", "pack_refs", "KnnPack",
-           "MAX_K"]
+           "MAX_K", "valid_first", "query_rows", "pick_splits",
+           "merge_ranges_plain", "knn_schedule_plain"]
 
 MAX_K = 32  # largest register list of the kernel
 _PLAIN_Q_CHUNK = 16384  # queries per chunk of the plain version
+# list buckets of the kernel and the queries a thread holds in each
+_QUERIES_PER_THREAD = {1: 4, 4: 2, 8: 2, 12: 2, 16: 1, 32: 1}
+_MAX_SPLITS = 8  # blocks per cluster
+# warps the grid should hold: 8 for each of the card's 132 x 4 schedulers
+_TARGET_WARPS = 8 * 132 * 4
 
 
 class KnnPack(NamedTuple):
     """The references as the kernel reads them, built by :func:`pack_refs`
     once per change of the reference cloud."""
-    ref_c: torch.Tensor  # f32[M, D] valid refs first, original order kept
-    ids: torch.Tensor  # i32[M] packed position -> original index
+    ref4: torch.Tensor  # f32[M, 4] x, y, z (0 at D=2), bits of the index
     n_valid: torch.Tensor  # 0-d i64, on the refs' device
+    dim: int  # D of the cloud that was packed
+
+    @property
+    def ref_c(self) -> torch.Tensor:
+        """f32[M, D]: valid refs first, original order kept."""
+        return self.ref4[:, :self.dim]
+
+    @property
+    def ids(self) -> torch.Tensor:
+        """i32[M]: packed position -> original index (the fourth lane's
+        bits)."""
+        return self.ref4.view(torch.int32)[:, 3]
+
+
+def valid_first(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows with the valid ones in front, order kept on both sides (a stable
+    sort of the mask), and the count of valid rows as a 0-d i64 tensor.
+    Nothing is read back to the host."""
+    order = torch.sort((~mask).to(torch.uint8), stable=True).indices
+    return order, mask.sum()
 
 
 def pack_refs(ref: torch.Tensor, ref_mask: Optional[torch.Tensor]) -> KnnPack:
-    """Valid references to the front (a stable sort of the mask, so the
-    original order -- and with it the tie rule -- is kept), with their
-    original indices and their count.  Nothing is read back to the host."""
-    m = ref.shape[0]
+    """Valid references to the front (:func:`valid_first`: the original
+    order -- and with it the tie rule -- is kept), four floats a reference:
+    the coordinates, then the original index as the bits of an int32.  The
+    fourth lane is only ever copied, never computed with."""
+    m, dim = ref.shape
     if ref_mask is None:
-        ids = torch.arange(m, dtype=torch.int32, device=ref.device)
-        return KnnPack(ref.contiguous(), ids,
-                       torch.tensor(m, dtype=torch.int64, device=ref.device))
-    order = torch.sort((~ref_mask).to(torch.uint8), stable=True).indices
-    return KnnPack(ref[order].contiguous(), order.to(torch.int32),
-                   ref_mask.sum())
+        order = torch.arange(m, dtype=torch.int32, device=ref.device)
+        n_valid = torch.tensor(m, dtype=torch.int64, device=ref.device)
+        return KnnPack(pack_rows4(ref, order), n_valid, dim)
+    order, n_valid = valid_first(ref_mask)
+    return KnnPack(pack_rows4(ref[order], order), n_valid, dim)
 
 
-def _knn_kernel(query, query_mask, pack: KnnPack, k: int):
-    """Launch ``csrc/knn_brute.cu`` on the current stream."""
+def _bucket(k: int) -> int:
+    return next(b for b in _QUERIES_PER_THREAD if k <= b)
+
+
+def pick_splits(n: int, k: int) -> int:
+    """Ranges the references are cut into (= blocks per cluster): the
+    smallest of 1, 2, 4, 8 that gives the grid ``_TARGET_WARPS`` warps, from
+    the number of query rows and k alone."""
+    per_block = _KERNEL_BLOCK * _QUERIES_PER_THREAD[_bucket(k)]
+    warps = -(-max(n, 1) // per_block) * (_KERNEL_BLOCK // 32)
+    s = 1
+    while s < _MAX_SPLITS and warps * s < _TARGET_WARPS:
+        s *= 2
+    return s
+
+
+def query_rows(query_mask: Optional[torch.Tensor]):
+    """What the kernel takes in place of a query mask: ``(rows i32[N],
+    count 0-d i64)`` with the valid rows in front (:func:`valid_first`), or
+    None when every query is valid."""
+    if query_mask is None:
+        return None
+    order, count = valid_first(query_mask)
+    return order.to(torch.int32), count
+
+
+def _knn_kernel(query, qrows, pack: KnnPack, k: int,
+                self_search: bool = False, splits: Optional[int] = None):
+    """Launch ``csrc/knn_brute.cu`` on the current stream.  ``qrows`` is
+    :func:`query_rows` of the query mask.  With ``self_search`` the pack's
+    rows are the queries and ``qrows`` is not read (``query`` is the cloud
+    the pack was built from)."""
     from ._build import load
     n, dim = query.shape
     if dim not in (2, 3):
         raise ValueError(f"knn kernel supports D in (2, 3); got D={dim}")
-    if query.dtype != torch.float32 or pack.ref_c.dtype != torch.float32:
+    if query.dtype != torch.float32 or pack.ref4.dtype != torch.float32:
         raise ValueError("knn kernel needs float32 coordinates")
-    if pack.ref_c.ndim != 2 or pack.ref_c.shape[1] != dim:
+    if pack.dim != dim:
         raise ValueError("knn kernel: queries and references differ in D")
-    if pack.ids.dtype != torch.int32 or pack.n_valid.dtype != torch.int64:
-        raise ValueError("knn kernel: the reference pack has int32 ids and "
+    if (pack.ref4.ndim != 2 or pack.ref4.shape[1] != 4
+            or pack.n_valid.dtype != torch.int64):
+        raise ValueError("knn kernel: the reference pack is f32[M, 4] with "
                          "an int64 count")
-    tensors = [query, pack.ref_c, pack.ids, pack.n_valid]
-    qm8 = None
-    if query_mask is not None:
-        qm8 = query_mask.to(torch.uint8)
-        tensors.append(qm8)
+    if self_search and pack.ref4.shape[0] != n:
+        raise ValueError("knn kernel: a self-search needs the pack of the "
+                         "queries' own cloud")
+    if splits is None:
+        splits = pick_splits(n, k)
+    tensors = [query, pack.ref4, pack.n_valid]
+    qlist = n_q = None
+    if self_search:
+        q_src, q_stride, n_q = pack.ref4, 4, pack.n_valid
+    else:
+        q_src, q_stride = query, dim
+        if qrows is not None:
+            qlist, n_q = qrows
+            if (qlist.dtype != torch.int32 or n_q.dtype != torch.int64
+                    or qlist.shape != (n,)):
+                raise ValueError("knn kernel: the query rows are i32[N] "
+                                 "with an int64 count")
+            tensors += [qlist, n_q]
     _check_kernel_args(*tensors)
     d_out = torch.empty((n, k), dtype=torch.float32, device=query.device)
     i_out = torch.empty((n, k), dtype=torch.int64, device=query.device)
     if n == 0:
         return d_out, i_out  # no query, no launch
-    ref_c = pack.ref_c
-    if ref_c.shape[0] == 0:
+    ref4 = pack.ref4
+    if ref4.shape[0] == 0:
         # never read (the count is 0), but the pointer must be valid
-        ref_c = query.new_zeros((1, dim))
+        ref4 = query.new_zeros((1, 4))
     lib = load("knn_brute")
     fn = lib.knn_brute_launch
     if not getattr(fn, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+        fn.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
         fn.restype = ci
         fn._typed = True
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # qm8 is a temporary: the allocator reuses its memory in stream
-        # order and the kernel runs on the same (current) stream
-        err = fn(query.data_ptr(), None if qm8 is None else qm8.data_ptr(),
-                 ref_c.data_ptr(), pack.ids.data_ptr(),
-                 pack.n_valid.data_ptr(), n, dim, k, d_out.data_ptr(),
-                 i_out.data_ptr(), stream)
+        err = fn(q_src.data_ptr(), q_stride,
+                 None if qlist is None else qlist.data_ptr(),
+                 int(self_search), None if n_q is None else n_q.data_ptr(),
+                 ref4.data_ptr(), pack.n_valid.data_ptr(), n, dim, k, splits,
+                 d_out.data_ptr(), i_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"knn_brute kernel launch failed (code {err})")
     knn.launches += 1
@@ -195,6 +284,46 @@ def knn_plain(query, ref, query_mask=None, ref_mask=None, k: int = 1,
     return d2, idx
 
 
+def knn_schedule_plain(query, query_mask, pack: KnnPack, k: int, splits: int,
+                       self_search: bool = False):
+    """The kernel's schedule in plain tensor operations, on whatever device
+    the tensors lie: the valid queries in list order (or the pack's own rows
+    for a self-search) against each of ``splits`` ranges of the packed
+    references, the partial lists merged by :func:`merge_ranges_plain`, the
+    indices taken from the pack's fourth lane, every result on its query's
+    own row and ``inf`` / ``-1`` on the others.  Reads the two counts to the
+    host; for the tests and the on-card comparison only."""
+    n = query.shape[0]
+    dev = query.device
+    m = int(pack.n_valid)
+    if self_search:
+        rows, n_q = pack.ids.to(torch.int64), m
+        q_valid = pack.ref_c[:n_q]
+    elif query_mask is None:
+        rows, n_q = torch.arange(n, device=dev), n
+        q_valid = query
+    else:
+        rows, count = valid_first(query_mask)
+        n_q = int(count)
+        q_valid = query[rows[:n_q]]
+    per = -(-m // splits)
+    per = -(-per // 16) * 16  # ranges start on a group of 16, as the kernel's
+    parts = []
+    for s in range(splits):
+        r0, r1 = min(m, s * per), min(m, (s + 1) * per)
+        d, pos = knn_plain(q_valid, pack.ref_c[r0:r1], k=k)
+        if r1 > r0:  # (an empty range found nothing: pos is all -1)
+            ids = pack.ids[r0:r1].to(torch.int64)
+            pos = torch.where(pos >= 0, ids[torch.clamp(pos, min=0)], pos)
+        parts.append((d, pos))
+    d_v, i_v = merge_ranges_plain(parts, k)
+    d_out = torch.full((n, k), float("inf"), dtype=torch.float32, device=dev)
+    i_out = torch.full((n, k), -1, dtype=torch.int64, device=dev)
+    d_out[rows[:n_q]] = d_v
+    i_out[rows[:n_q]] = i_v
+    return d_out, i_out
+
+
 def knn(
     query: torch.Tensor,  # f32[N, D]
     ref: torch.Tensor,  # f32[M, D]
@@ -214,8 +343,10 @@ def knn(
 
     ``pack`` optionally supplies :func:`pack_refs`'s output for the same
     ``ref`` / ``ref_mask`` (a caller that searches one cloud many times
-    builds it once).  A CUDA ``query`` launches the hand-written kernel (or
-    raises); a CPU ``query`` runs the plain version.
+    builds it once).  A cloud searched against itself (``query is ref`` and
+    ``query_mask is ref_mask``) reads its queries from the pack: one layout,
+    one sort of the mask.  A CUDA ``query`` launches the hand-written kernel
+    (or raises); a CPU ``query`` runs the plain version.
     """
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn supports 1 <= k <= {MAX_K}; got k={k}")
@@ -223,7 +354,13 @@ def knn(
         return knn_plain(query, ref, query_mask, ref_mask, k, max_radius)
     if pack is None:
         pack = pack_refs(ref, ref_mask)
-    d2, idx = _knn_kernel(query.contiguous(), query_mask, pack, k)
+    self_search = query is ref and query_mask is ref_mask
+    # the rows' memory may be reused as soon as the launch is queued: the
+    # allocator reuses it in stream order, and the kernel runs on the same
+    # (current) stream
+    qrows = None if self_search else query_rows(query_mask)
+    d2, idx = _knn_kernel(query.contiguous(), qrows, pack, k,
+                          self_search=self_search)
     if max_radius is not None:
         d2, idx = _apply_radius(d2, idx, max_radius)
     return d2, idx

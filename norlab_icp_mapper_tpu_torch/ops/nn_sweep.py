@@ -22,17 +22,30 @@ On a CUDA tensor ``sweep_knn`` launches ``csrc/sweep_knn.cu``, written by
 hand for Hopper; it replaces the Pallas TPU kernel ``_fused_kernel``
 (``ops/nn_sweep.py`` of the JAX package, launched by ``_sweep_fused``).
 
-* What bounds it on an H100: operations.  A candidate pair costs 3
-  subtractions, 3 products, 2 sums and a compare in f32; the references of a
-  window are read once and then served from shared memory, the outputs are
-  ``8 k`` bytes per query.
-* What the design does about it: it examines fewer pairs.  ``q_tile`` stays
+* What bounds it on an H100: operations, and among them instruction dispatch.
+  A candidate pair costs 3 subtractions, 3 products and 2 sums in f32, each
+  rounded on its own, plus its ranking; the references of a window are read
+  once and then served from shared memory, the outputs are ``12 k`` bytes
+  per query.  On top of that the windows differ in length: with one block
+  per window the launch ended with its longest window.
+* What the design does about it.  It examines fewer pairs: ``q_tile`` stays
   the unit of the ``W`` cap and of ``overflow``, but the kernel works in
-  blocks of 128 consecutive queries, and the wrapper gives every block the
-  part of its tile's window that its own queries can reach (a block spans an
-  eighth of a 1024-query tile's x range).  Any window that holds every
-  reference within ``r`` of a query gives that query the same answer, so the
-  narrower windows change no result where ``overflow == 0``.
+  blocks of 256 consecutive queries (2 per thread), and the wrapper gives
+  every block the part of its tile's window that its own queries can reach.
+  Any window that holds every reference within ``r`` of a query gives that
+  query the same answer, so the narrower windows change no result where
+  ``overflow == 0``.  The pair loop is the one of the brute-force search
+  (``csrc/sweep_common.cuh``): sorted references packed as ``f32[M, 4]``
+  with the original index in the fourth lane (one 128-bit load a reference,
+  no gather through the sort order afterwards), ``cp.async`` staging in a
+  two-deep ring, ranking by groups.  A window is cut into chunks of equal
+  length (:func:`chunking`); the blocks of one window form a thread-block
+  cluster and merge their lists in distributed shared memory, so blocks
+  differ by at most a chunk and a long window no longer sets the time.
+* Tensor cores are not used: the product has a depth of 3, and the expanded
+  form in TF32 (or split three ways) loses the digits that the radius gate,
+  the tie rule and bit-identity with the plain version need; the JAX
+  package's reduced-precision tiers were measured and refuted.
 * Differences from the TPU kernel, all deliberate: no packed integer keys
   (k > 1 returns exact f32 distances under the rule ``d2 <= r^2``, as the
   reference's ``packed=False`` path does), no planar ``[8, N]`` layout, no
@@ -44,26 +57,58 @@ On a CPU tensor the wrapper runs ``_search_plain``, the same function in
 ordinary tensor operations; ``sweep_knn_plain`` forces that path on any
 device and is what the tests and the on-card comparison use.  A CUDA tensor
 never takes it from ``sweep_knn``: the kernel launches or the call raises.
+:func:`search_chunked_plain` walks the kernel's chunks and their merge in
+ordinary tensor operations, for the tests and the on-card comparison.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["sweep_knn", "sweep_knn_plain", "presort_ref", "presort_queries",
-           "RefPack", "BIG", "sweep_windows"]
+           "RefPack", "BIG", "sweep_windows", "pack_rows4", "chunking",
+           "search_chunked_plain"]
 
 BIG = 1.0e9  # x given to invalid points so that they sort to the end
-_KERNEL_BLOCK = 128  # queries (threads) per kernel block
+_KERNEL_BLOCK = 128  # threads per kernel block
+_BLOCK_QUERIES = 256  # queries per block of the sweep_knn kernel (2 a thread)
 _MAX_K = 6
+_MAX_CHUNK = 2048  # references per block of a window, at most
+_MAX_CHUNKS = 8  # blocks per cluster
+
+
+def pack_rows4(coords: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``f32[M, 4]`` as the pair loop reads it: the coordinates (z = 0 at
+    D = 2) and, in the fourth lane, ``ids`` as the bits of an int32.  The
+    fourth lane is only ever copied, never computed with."""
+    m, dim = coords.shape
+    if dim not in (2, 3):
+        raise ValueError(f"the packed layout holds D in (2, 3); got D={dim}")
+    out = torch.zeros((m, 4), dtype=torch.float32, device=coords.device)
+    out[:, :dim] = coords
+    out.view(torch.int32)[:, 3] = ids.to(torch.int32)
+    return out
+
+
+def chunking(W: int) -> Tuple[int, int]:
+    """``(chunks, chunk)``: a window of at most ``W`` references is cut into
+    ``chunks`` (1, 2, 4 or 8: the blocks of a cluster) pieces of ``chunk``
+    references (a multiple of 16), the fewest that keep a piece at or below
+    ``_MAX_CHUNK``."""
+    chunks = 1
+    while chunks < _MAX_CHUNKS and -(-W // chunks) > _MAX_CHUNK:
+        chunks *= 2
+    chunk = max(16, -(-(-(-W // chunks)) // 16) * 16)
+    return chunks, chunk
 
 
 class RefPack(NamedTuple):
     """The sorted reference, built once per map change by ``presort_ref``."""
-    ref_s: torch.Tensor  # f32[M, D] centered refs in ascending-x order
+    ref_s: torch.Tensor  # f32[M, 4] centered refs in ascending-x order
+    #                      (x, y, z or 0, bits of the original index)
     ref_mask_s: torch.Tensor  # bool[M] validity in that order
     ref_xs: torch.Tensor  # f32[M] sorted x, BIG for invalid refs
     ref_order: torch.Tensor  # i64[M] sorted position -> original index
@@ -86,9 +131,9 @@ def presort_ref(ref: torch.Tensor, ref_mask: torch.Tensor) -> RefPack:
     ref_x = torch.where(ref_mask, ref_c[:, 0],
                         torch.full_like(ref_c[:, 0], BIG))
     ref_order = torch.sort(ref_x, stable=True).indices
-    return RefPack(ref_c[ref_order].contiguous(), ref_mask[ref_order],
-                   ref_x[ref_order].contiguous(), ref_order,
-                   ref_mask.sum(), center)
+    return RefPack(pack_rows4(ref_c[ref_order], ref_order),
+                   ref_mask[ref_order], ref_x[ref_order].contiguous(),
+                   ref_order, ref_mask.sum(), center)
 
 
 def presort_queries(pos: torch.Tensor, mask: torch.Tensor):
@@ -139,18 +184,20 @@ def sweep_windows(qx_s: torch.Tensor, qm_s: torch.Tensor, pack: RefPack,
     queries can reach."""
     ref_xs = pack.ref_xs
     tile_min, tile_max, live = _group_extent(qx_s, qm_s, q_tile)
-    lo = torch.searchsorted(ref_xs, tile_min - r)
-    hi = torch.searchsorted(ref_xs, tile_max + r)
+    # int32 positions: what the kernels read, so nothing is converted later
+    lo = torch.searchsorted(ref_xs, tile_min - r, out_int32=True)
+    hi = torch.searchsorted(ref_xs, tile_max + r, out_int32=True)
     overflow = (live & ((hi - lo) > W)).sum()
-    t_end = torch.minimum(torch.minimum(hi, lo + W), pack.n_valid)
+    t_end = torch.minimum(torch.minimum(hi, lo + W),
+                          pack.n_valid.to(torch.int32))
     t_end = torch.where(live, t_end, lo)
     t_end = torch.maximum(t_end, lo)
 
     per = q_tile // block
     b_min, b_max, _ = _group_extent(qx_s, qm_s, block)
-    b_lo = torch.searchsorted(ref_xs, b_min - r)
+    b_lo = torch.searchsorted(ref_xs, b_min - r, out_int32=True)
     # right side: a superset of what the tile-level (left) bound admits
-    b_hi = torch.searchsorted(ref_xs, b_max + r, right=True)
+    b_hi = torch.searchsorted(ref_xs, b_max + r, right=True, out_int32=True)
     b_start = torch.maximum(b_lo, lo.repeat_interleave(per))
     b_end = torch.minimum(b_hi, t_end.repeat_interleave(per))
     b_end = torch.maximum(b_end, b_start)
@@ -196,6 +243,48 @@ def _search_plain(q_s, qm_s, ref_s, t_start, t_end, live, r2, k, q_tile):
     return d_out, i_out
 
 
+def merge_ranges_plain(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                       k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' merge step in plain tensor operations: ``parts`` are the
+    ``(d2 [N, k'], idx [N, k'])`` lists of contiguous ascending ranges of the
+    references, each ascending with ties by lower index; returns the k best
+    of their union under the same rule.  The lists are laid side by side in
+    range order and k rounds of (min, first argmin) pick from them: the
+    first minimal position is the lower range, and inside a range the
+    earlier entry."""
+    cat_d = torch.cat([d for d, _ in parts], dim=1).clone()
+    cat_i = torch.cat([i for _, i in parts], dim=1)
+    n = cat_d.shape[0]
+    inf = float("inf")
+    best_d = torch.full((n, k), inf, dtype=cat_d.dtype, device=cat_d.device)
+    best_i = torch.full((n, k), -1, dtype=cat_i.dtype, device=cat_d.device)
+    for j in range(min(k, cat_d.shape[1])):
+        mval, a = cat_d.min(dim=1)
+        best_d[:, j] = mval
+        best_i[:, j] = torch.gather(cat_i, 1, a[:, None])[:, 0]
+        cat_d.scatter_(1, a[:, None], inf)
+    found = torch.isfinite(best_d)
+    return best_d, torch.where(found, best_i, torch.full_like(best_i, -1))
+
+
+def search_chunked_plain(q_s, qm_s, ref_s, b_start, b_end, r2, k, block,
+                         chunks, chunk):
+    """The kernel's schedule in plain tensor operations: every block of
+    ``block`` sorted queries against each of the ``chunks`` pieces of
+    ``chunk`` references of its window (a piece beyond the window's end is
+    empty), the partial lists merged by :func:`merge_ranges_plain`.  Returns
+    what :func:`_search_plain` returns on the same windows: distances and
+    sorted positions.  For the tests and the on-card comparison only."""
+    live = torch.ones_like(b_start, dtype=torch.bool)
+    parts = []
+    for c in range(chunks):
+        c_start = torch.minimum(b_end, b_start + c * chunk)
+        c_end = torch.minimum(b_end, c_start + chunk)
+        parts.append(_search_plain(q_s, qm_s, ref_s, c_start, c_end, live,
+                                   r2, k, block))
+    return merge_ranges_plain(parts, k)
+
+
 def _check_kernel_args(*tensors):
     for t in tensors:
         if not t.is_cuda:
@@ -204,8 +293,11 @@ def _check_kernel_args(*tensors):
             raise ValueError("kernel launch needs contiguous tensors")
 
 
-def _search_kernel(q_s, qm_s, ref_s, b_start, b_end, r2, k, n_rows):
-    """Launch ``csrc/sweep_knn.cu`` on the current stream."""
+def _search_kernel(q_s, qm_s, ref_s, b_start, b_end, r2, k, n_rows, W):
+    """Launch ``csrc/sweep_knn.cu`` on the current stream: ``b_start`` /
+    ``b_end`` are the windows of the blocks of ``_BLOCK_QUERIES`` sorted
+    queries, none longer than ``W``.  Returns distances and ORIGINAL
+    reference indices (the fourth lane of ``ref_s``), int64."""
     from ._build import load
     dim = q_s.shape[1]
     if dim not in (2, 3) or not 1 <= k <= _MAX_K:
@@ -213,34 +305,44 @@ def _search_kernel(q_s, qm_s, ref_s, b_start, b_end, r2, k, n_rows):
                          f"1 <= k <= {_MAX_K}; got D={dim}, k={k}")
     if q_s.dtype != torch.float32 or ref_s.dtype != torch.float32:
         raise ValueError("sweep_knn kernel needs float32 coordinates")
-    qm8 = qm_s.to(torch.uint8)
+    if ref_s.ndim != 2 or ref_s.shape[1] != 4:
+        raise ValueError("sweep_knn kernel: the sorted references are "
+                         "f32[M, 4] (presort_ref)")
+    if qm_s.dtype != torch.bool:
+        raise ValueError("sweep_knn kernel needs a bool query mask")
+    # a bool tensor is one byte of 0 or 1 per element: the kernel reads it
+    # as it is; the windows come as int32 from sweep_windows (no copy then)
     start32 = b_start.to(torch.int32)
     end32 = b_end.to(torch.int32)
-    _check_kernel_args(q_s, qm8, ref_s, start32, end32)
+    _check_kernel_args(q_s, qm_s, ref_s, start32, end32)
+    if start32.shape[0] * _BLOCK_QUERIES != n_rows:
+        raise ValueError("sweep_knn kernel: one window per "
+                         f"{_BLOCK_QUERIES} queries")
     if ref_s.shape[0] == 0:
         # the kernel never reads refs when every window is empty, but it
         # must be handed a valid pointer
-        ref_s = q_s.new_zeros((1, dim))
+        ref_s = q_s.new_zeros((1, 4))
     d_out = torch.empty((n_rows, k), dtype=torch.float32, device=q_s.device)
-    i_out = torch.empty((n_rows, k), dtype=torch.int32, device=q_s.device)
+    i_out = torch.empty((n_rows, k), dtype=torch.int64, device=q_s.device)
     if n_rows == 0:
         return d_out, i_out  # no query, no launch
-    # qm8 / start32 / end32 are temporaries: PyTorch's allocator reuses their
-    # memory in stream order, and the kernel runs on the same (current)
-    # stream, so they may be dropped as soon as the launch is queued
+    chunks, chunk = chunking(max(int(W), 1))
     lib = load("sweep_knn")
     fn = lib.sweep_knn_launch
     if not getattr(fn, "_typed", False):
+        if lib.sweep_knn_block_queries() != _BLOCK_QUERIES:
+            raise RuntimeError("sweep_knn kernel and wrapper disagree on the "
+                               "queries per block")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_float, ci, ci, ci, ci,
-                       ci, vp, vp, vp]
+                       ci, ci, vp, vp, vp]
         fn.restype = ci
         fn._typed = True
     with torch.cuda.device(q_s.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q_s.data_ptr(), qm8.data_ptr(), ref_s.data_ptr(),
+        err = fn(q_s.data_ptr(), qm_s.data_ptr(), ref_s.data_ptr(),
                  start32.data_ptr(), end32.data_ptr(), r2, n_rows,
-                 start32.shape[0], _KERNEL_BLOCK, dim, k, d_out.data_ptr(),
+                 start32.shape[0], chunks, chunk, dim, k, d_out.data_ptr(),
                  i_out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"sweep_knn kernel launch failed (code {err})")
@@ -251,12 +353,14 @@ def _search_kernel(q_s, qm_s, ref_s, b_start, b_end, r2, k, n_rows):
     return d_out, i_out
 
 
-def _kernel_block_for(q_tile: int) -> int:
-    if q_tile % _KERNEL_BLOCK:
+def _kernel_block_for(q_tile: int, block: int = _KERNEL_BLOCK) -> int:
+    """``block`` (the queries a kernel block serves) if it divides
+    ``q_tile``; raises otherwise."""
+    if q_tile % block:
         raise ValueError(
-            f"q_tile must be a multiple of {_KERNEL_BLOCK} for the kernel; "
+            f"q_tile must be a multiple of {block} for the kernel; "
             f"got {q_tile}")
-    return _KERNEL_BLOCK
+    return block
 
 
 def _sweep(query, ref, query_mask, ref_mask, k, max_radius, q_tile, W,
@@ -296,27 +400,29 @@ def _sweep(query, ref, query_mask, ref_mask, k, max_radius, q_tile, W,
     qx_s = pad_rows(qx_sorted, pad, BIG)
 
     use_kernel = query.is_cuda and not force_plain
-    block = _kernel_block_for(q_tile) if use_kernel else q_tile
+    block = (_kernel_block_for(q_tile, _BLOCK_QUERIES) if use_kernel
+             else q_tile)
     t_start, t_end, live, overflow, b_start, b_end = sweep_windows(
         qx_s, qm_s, pack, r, q_tile, W, block)
 
     if use_kernel:
-        d_sorted, i_sorted = _search_kernel(
+        # the kernel takes the original indices from the pack's fourth lane
+        d_sorted, i_orig = _search_kernel(
             q_s.contiguous(), qm_s.contiguous(), pack.ref_s, b_start, b_end,
-            r2, k, n_pad)
+            r2, k, n_pad, W)
+        d_sorted, i_orig = d_sorted[:n], i_orig[:n]
     else:
         d_sorted, i_sorted = _search_plain(
             q_s, qm_s, pack.ref_s, t_start, t_end, live, r2, k, q_tile)
-    d_sorted = d_sorted[:n]
-    i_sorted = i_sorted[:n].to(torch.int64)
-
-    # sorted-ref indices -> original ref ids
-    if m == 0:
-        i_orig = torch.full_like(i_sorted, -1)
-    else:
-        i_orig = torch.where(i_sorted >= 0,
-                             pack.ref_order[torch.clamp(i_sorted, min=0)],
-                             torch.full_like(i_sorted, -1))
+        d_sorted = d_sorted[:n]
+        i_sorted = i_sorted[:n].to(torch.int64)
+        # sorted-ref positions -> original ref ids
+        if m == 0:
+            i_orig = torch.full_like(i_sorted, -1)
+        else:
+            i_orig = torch.where(i_sorted >= 0,
+                                 pack.ref_order[torch.clamp(i_sorted, min=0)],
+                                 torch.full_like(i_sorted, -1))
     if assume_sorted:
         return d_sorted, i_orig, overflow
     return d_sorted[inv], i_orig[inv], overflow

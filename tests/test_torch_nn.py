@@ -265,5 +265,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(rng):
         tnn._knn_kernel(q.double(), None, pack, 1)
     with pytest.raises(ValueError, match="differ in D"):
         tnn._knn_kernel(torch.zeros(8, 2), None, pack, 1)
-    with pytest.raises(ValueError, match="int32 ids"):
-        tnn._knn_kernel(q, None, pack._replace(ids=pack.ids.long()), 1)
+    with pytest.raises(ValueError, match="int64 count"):
+        tnn._knn_kernel(q, None, pack._replace(n_valid=pack.n_valid.int()), 1)
+    with pytest.raises(ValueError, match="query rows"):
+        tnn._knn_kernel(q, (torch.zeros(8, dtype=torch.int64),
+                            torch.tensor(8)), pack, 1)
+    with pytest.raises(ValueError, match="own cloud"):
+        tnn._knn_kernel(torch.zeros(9, 3), None, pack, 1, self_search=True)

@@ -205,16 +205,21 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
     m = torch.ones(128, dtype=torch.bool)
     z = torch.zeros(1, dtype=torch.int64)
     # a CPU tensor never reaches a launch: the checks come first
+    r4 = torch.zeros(128, 4)  # the sorted references as the kernel reads them
     with pytest.raises(ValueError, match="CUDA tensors"):
-        nn_sweep._search_kernel(q, m, q, z, z, 1.0, 1, 128)
+        nn_sweep._search_kernel(q, m, r4, z, z, 1.0, 1, 128, 128)
     with pytest.raises(ValueError, match="1 <= k <= 6"):
-        nn_sweep._search_kernel(q, m, q, z, z, 1.0, 7, 128)
+        nn_sweep._search_kernel(q, m, r4, z, z, 1.0, 7, 128, 128)
     with pytest.raises(ValueError, match="D in"):
         pca._moments_kernel(torch.zeros(128, 4), m, q, z, z, 1.0, 128)
     with pytest.raises(ValueError, match="float32"):
-        nn_sweep._search_kernel(q.double(), m, q, z, z, 1.0, 1, 128)
+        nn_sweep._search_kernel(q.double(), m, r4, z, z, 1.0, 1, 128, 128)
+    with pytest.raises(ValueError, match=r"f32\[M, 4\]"):
+        nn_sweep._search_kernel(q, m, q, z, z, 1.0, 1, 128, 128)
     with pytest.raises(ValueError, match="multiple of 128"):
         nn_sweep._kernel_block_for(100)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        nn_sweep._kernel_block_for(128, nn_sweep._BLOCK_QUERIES)
 
 
 # ----------------------------------------------------------------- convert
@@ -241,7 +246,10 @@ def test_convert_presort_pack(rng):
     six = [np.asarray(x) for x in jpresort(jnp.asarray(ref), jnp.asarray(rm))]
     pack = convert.presort_pack_from_numpy(*six, device="cpu")
     assert int(pack.n_valid) == int(rm.sum())
-    np.testing.assert_array_equal(pack.ref_s.numpy(), six[0])
+    # the sorted coordinates, and the sort order as the fourth lane's bits
+    np.testing.assert_array_equal(pack.ref_s.numpy()[:, :3], six[0])
+    np.testing.assert_array_equal(pack.ref_s.numpy().view(np.int32)[:, 3],
+                                  six[3])
     q = torch.from_numpy(rng.uniform(-5, 5, (100, 3)).astype(np.float32))
     kw = dict(k=2, max_radius=1.5, q_tile=128, W=300)
     d0, i0, _ = nn_sweep.sweep_knn(q, torch.from_numpy(ref), None,
