@@ -14,7 +14,9 @@ standard output; the last line is the verdict
 Phases:
   card      the card's name and power limit, torch and CUDA versions
   build     compiles the kernels (all sources in parallel), prints the seconds
-  kernels   each kernel against its plain version at the path's shapes
+  kernels   each kernel against its plain version at the path's shapes; a
+            ``phase_split`` line times the SurfaceNormal radius branch stage
+            by stage, now and in its earlier form
   identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence
   p2plane   a Mapper on examples/config_p2plane.yaml, pose priors perturbed
   default   a Mapper without a config (``Mapper(None)``: matcher without
@@ -22,6 +24,9 @@ Phases:
   p2point   the default config with the point-to-point minimizer, median and
             surface-normal outlier filters and a step filter, 6 scans; then
             4 scans with a bound checker added (the stepwise path)
+  profile   device time of the new kernels by name and device launches per
+            stage, from ``torch.profiler`` (last: its hooks slow every later
+            launch)
 
 The sequence is 18 scans of a ray-cast lidar (64 rings x 768 azimuths =
 49,152 rays) in an analytic hall of 60 x 25 x 5 m with box obstacles, made
@@ -437,107 +442,497 @@ def sweep_case(name, query, qmask, ref, rmask, k, radius, q_tile, W,
     }
 
 
-def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool,
-             exact=False):
+# torch.profiler work waits here until the mapping phases are over: once the
+# profiler has run, its tracing hooks stay attached to the process and every
+# later launch costs the host more (the ICP loop, which is bound by the
+# host's launch rate, ran 15-50 % slower per iteration after it).  Launches
+# made here fall outside every reading of the wrappers' counters.
+PROFILE_JOBS = []  # ("device_ms" or "launches", key, fn, kernel name part)
+
+
+def phase_profile():
+    """Device time of the kernels by name and device launches per stage,
+    as ``torch.profiler`` records them on the card."""
+    out = {"phase": "profile", "kernel_device_ms": {}, "device_launches": {},
+           "launches_counted_by": "torch.profiler device events"}
+    for kind, key, fn, part in PROFILE_JOBS:
+        if kind == "device_ms":
+            out["kernel_device_ms"][key] = kernel_device_ms(fn, part)
+        else:
+            out["device_launches"][key] = count_device_launches(fn)
+    PROFILE_JOBS.clear()
+    emit(out)
+    return out
+
+
+def kernel_device_ms(fn, name_part, reps=10):
+    """Mean device time in ms of the kernels whose name holds ``name_part``
+    over ``reps`` calls of ``fn``, as ``torch.profiler`` records it (the
+    launch path on the host is not in it); None if none was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total / e.count for e in prof.key_averages()
+          if name_part in e.key and e.device_time_total > 0]
+    return max(us) / 1e3 if us else None
+
+
+def hold_normals(name, ev_k, n_k, ev_p, n_p, rows, r2):
+    """Eigenvalues and normals of kernel and plain version on ``rows``.
+    Tolerances come from r^2, not from bit identity: ``acosf`` / ``cosf``
+    differ from PyTorch's by ulps and nvcc contracts products and sums.
+    Eigenvalues: their sum to 1e-5 r^2 everywhere; each to 1e-5 r^2 where
+    both gaps of the plain spectrum exceed 1e-3 r^2 (all of them at D = 2,
+    whose closed form has no acos), and to 1e-3 r^2 elsewhere: near a double
+    eigenvalue acos is ill conditioned, and an ulp of its argument moves the
+    pair by sqrt(ulp) of the spread.  Normals: |n_k . n_p| >= 1 - 1e-5 where
+    the two smallest eigenvalues are 1e-3 r^2 apart; sign flips are counted
+    and must stay below 0.1 % of the rows."""
+    dim = ev_p.shape[1]
+    err = (ev_k - ev_p).abs()
+    trace_err = float((ev_k.sum(1) - ev_p.sum(1)).abs()[rows].max())
+    gap0 = (ev_p[:, 1] - ev_p[:, 0]) > 1e-3 * r2
+    well = rows & gap0
+    if dim == 3:
+        well = well & ((ev_p[:, 2] - ev_p[:, 1]) > 1e-3 * r2)
+    else:
+        well = rows
+    ev_err_well = float(err[well].max()) if well.any() else 0.0
+    ev_err_all = float(err[rows].max())
+    check(trace_err <= 1e-5 * r2, f"{name}: the eigenvalues' sum differs "
+                                  f"from the plain version's by {trace_err}")
+    check(ev_err_well <= 1e-5 * r2,
+          f"{name}: eigenvalues differ by {ev_err_well} > {1e-5 * r2} where "
+          "the spectrum is simple")
+    check(ev_err_all <= 1e-3 * r2,
+          f"{name}: eigenvalues differ by {ev_err_all} > {1e-3 * r2}")
+    sel = rows & gap0
+    dots = (n_k * n_p).sum(1)[sel]
+    flips = int((dots < 0).sum())
+    min_dot = float(dots.abs().min()) if sel.any() else 1.0
+    check(min_dot >= 1 - 1e-5, f"{name}: a normal differs from the plain "
+                               f"version's, |dot| = {min_dot}")
+    n_rows = int(rows.sum())
+    check(flips <= 1e-3 * n_rows, f"{name}: {flips} normals of {n_rows} have "
+                                  "the other sign than the plain version's")
+    unit = float((torch.linalg.norm(n_k[rows], dim=1) - 1).abs().max())
+    check(unit <= 1e-5, f"{name}: a normal is not of unit length ({unit})")
+    return {"max_abs_err_evals_simple_spectrum": ev_err_well,
+            "max_abs_err_evals": ev_err_all, "max_abs_err_trace": trace_err,
+            "rows_compared_for_normals": int(sel.sum()),
+            "min_abs_dot": min_dot, "sign_flips": flips}
+
+
+def cov_oracle_errors(pts, qp, stats_k, stats_p, r2, q_tile, W, rng,
+                      sample=2048):
+    """Covariances of kernel and plain version against float64 on a sample
+    of valid queries: the neighbour set is the f32 gate's on the tile's
+    (possibly truncated) window, the arithmetic float64 on the original
+    coordinates.  Beside them the error of the raw-moment form
+    ``S(x x^T)/n - mean mean^T`` about the cloud's centroid in f32, summed
+    over the same neighbours (the form this kernel had before)."""
+    from norlab_icp_mapper_tpu_torch.ops import pca as P
+    dim = pts.shape[1]
+    n_q = int(qp.n_valid)
+    pick = torch.from_numpy(np.sort(rng.choice(n_q, min(sample, n_q),
+                                               replace=False))).to(pts.device)
+    start, end, _, _ = P.block_windows_plain(qp, qp, float(np.sqrt(r2)),
+                                             q_tile, W, q_tile)
+    t = pick // q_tile
+    s0, e0 = start[t], end[t]  # a block of q_tile queries is a tile
+    width = int((e0 - s0).max())
+    idx = s0[:, None] + torch.arange(width, device=pts.device)[None, :]
+    inside = idx < e0[:, None]
+    idx = idx.clamp(max=qp.ref_s.shape[0] - 1)
+    ref_c = qp.ref_s[:, :dim]
+    q = ref_c[pick]
+    d = ref_c[idx][:, :, 0] - q[:, None, 0]
+    s = d * d
+    for a in range(1, dim):
+        d = ref_c[idx][:, :, a] - q[:, None, a]
+        s = s + d * d
+    w = (inside & (s <= r2))
+    rows = qp.ref_order[pick]
+    x64 = pts.double()[qp.ref_order[idx]]  # [S, width, D], original frame
+    w64 = w.double()[..., None]
+    cnt = w64.sum(1).clamp(min=1)
+    mean = (x64 * w64).sum(1) / cnt
+    dev = (x64 - mean[:, None, :]) * w64
+    cov = torch.einsum("nkd,nke->nde", dev, dev) / cnt[..., None]
+    check(bool((w.sum(1).float() == stats_k.cnt[rows]).all()),
+          "oracle: the sampled neighbour sets differ from the kernel's counts")
+    # the raw-moment form in f32 about the centroid, same neighbours
+    xc = ref_c[idx] * w[..., None]
+    cf = w.float().sum(1).clamp(min=1)
+    m1 = xc.sum(1) / cf[:, None]
+    m2 = torch.einsum("nkd,nke->nde", xc, xc) / cf[:, None, None]
+    cov_raw = m2 - m1[:, :, None] * m1[:, None, :]
+    return {"oracle_sample": int(pick.shape[0]),
+            "max_abs_err_cov_kernel_vs_f64":
+                float((stats_k.cov[rows].double() - cov).abs().max()),
+            "max_abs_err_cov_plain_vs_f64":
+                float((stats_p.cov[rows].double() - cov).abs().max()),
+            "max_abs_err_cov_raw_moment_form_vs_f64":
+                float((cov_raw.double() - cov).abs().max()),
+            "max_abs_err_mean_kernel_vs_f64":
+                float((stats_k.mean[rows].double() - mean).abs().max())}
+
+
+def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool, rng,
+             exact=False, knn=10, oracle_tol=None):
+    """One radius_pca shape: every output of the one-launch kernel against
+    the plain version, covariances against float64, then timed."""
     from norlab_icp_mapper_tpu_torch.ops import nn_sweep as S
     from norlab_icp_mapper_tpu_torch.ops import pca as P
     dim = pts.shape[1]
-    cnt_k, mean_k, cov_k, ov = P.radius_pca(pts, pts, mask, mask,
-                                            max_radius=radius, q_tile=q_tile,
-                                            W=W)
+    n = pts.shape[0]
+    min_count = min(knn, 3)
+    before = P.radius_pca.launches
+    args = (pts, pts, mask, mask, radius, q_tile, W, min_count)
+    k = P._radius_pca(*args, force_plain=False)
     torch.cuda.synchronize()
-    cnt_p, mean_p, cov_p, ov_p = P.radius_pca_plain(
-        pts, pts, mask, mask, max_radius=radius, q_tile=q_tile, W=W)
+    check(P.radius_pca.launches == before + 1,
+          f"{name}: the wrapper made {P.radius_pca.launches - before} "
+          "launches, not 1")
+    p = P._radius_pca(*args, force_plain=True)
     torch.cuda.synchronize()
-    check(int(ov) == int(ov_p), f"{name}: overflow differs from the plain "
-                                "version's")
+    check(int(k.overflow) == int(p.overflow),
+          f"{name}: overflow {int(k.overflow)} differs from the plain "
+          f"version's {int(p.overflow)}")
     if exact:
-        check(int(ov) == 0, f"{name}: {int(ov)} tiles overflow on the cloud "
-                            "made for the exact case")
-    count_flips = int((cnt_k != cnt_p).sum())
+        check(int(k.overflow) == 0, f"{name}: {int(k.overflow)} tiles "
+              "overflow on the cloud made for the exact case")
+    count_flips = int((k.cnt != p.cnt).sum())
     check(count_flips == 0,
           f"{name}: {count_flips} neighbour counts differ from the plain "
           "version (the distance gate is meant to agree bit for bit)")
-
-    # kernel alone vs plain moments alone on the same windows
-    c = torch.where(mask[:, None], pts, torch.zeros_like(pts)).sum(0) \
-        / mask.sum().clamp(min=1)
-    pc = pts - c
-    ref_x = torch.where(mask, pc[:, 0], torch.full_like(pc[:, 0], S.BIG))
-    order = torch.sort(ref_x, stable=True).indices
-    ref_s = pc[order].contiguous()
-    pack = S.RefPack(ref_s, mask[order], ref_x[order].contiguous(), order,
-                     mask.sum(), torch.zeros(dim, device=pts.device))
-    q_s, qm_s, qx_s = _sorted_padded(ref_s, mask[order], q_tile)
-    r_t = torch.tensor(float(radius), device=pts.device)
     r2 = float(np.float32(radius * radius))
-    Wc = min(W, pts.shape[0])
-    t_start, t_end, live, overflow, b_start, b_end = S.sweep_windows(
-        qx_s, qm_s, pack, r_t, q_tile, Wc, S._KERNEL_BLOCK)
-    n_pad = q_s.shape[0]
-    before = P.radius_pca.launches
-    acc_k = P._moments_kernel(q_s, qm_s, ref_s, b_start, b_end, r2, n_pad)
-    acc_p = P._moments_plain(q_s, qm_s, ref_s, t_start, t_end, live, r2,
-                             q_tile)
-    torch.cuda.synchronize()
-    # sums are taken in another order than the plain matrix product:
-    # tolerance 1e-5 of each moment row's largest magnitude
-    scale = acc_p.abs().amax(1).clamp(min=1.0)
-    rel = ((acc_k - acc_p).abs().amax(1) / scale)
-    max_rel = float(rel.max())
-    max_abs = float((acc_k - acc_p).abs().max())
-    check(max_rel <= 1e-5, f"{name}: moment rows differ by {max_rel} of "
-                           "their magnitude (> 1e-5)")
-    lo_ms, ms, hi_ms = time_cuda_stats(lambda: P._moments_kernel(
-        q_s, qm_s, ref_s, b_start, b_end, r2, n_pad))
-    wrapper_ms = time_cuda(lambda: P.radius_pca(
-        pts, pts, mask, mask, max_radius=radius, q_tile=q_tile, W=W))
-    plain_ms = time_cuda(lambda: P._moments_plain(
-        q_s, qm_s, ref_s, t_start, t_end, live, r2, q_tile), reps=2, warmup=1)
+    eps = float(np.finfo(np.float32).eps)
+    # mean: 1e-6 r of summation order, and the rounding of q + s + c at |q|
+    mean_tol = 1e-6 * radius + 4 * eps * torch.linalg.norm(pts, dim=1)
+    mean_excess = float(((k.mean - p.mean).abs().amax(1) - mean_tol).max())
+    check(mean_excess <= 0, f"{name}: a mean differs from the plain "
+                            f"version's by {mean_excess} above its tolerance")
+    cov_err = float((k.cov - p.cov).abs().max())
+    check(cov_err <= 1e-5 * r2, f"{name}: covariances differ by {cov_err} > "
+                                f"{1e-5 * r2}")
+    for x in (k.cnt, k.mean, k.cov, k.evals, k.normals):
+        check(not bool(x[~mask].any()),
+              f"{name}: a row of an invalid point is not zero")
+    few = mask & (k.cnt < min_count)
+    fb = torch.zeros(dim, device=pts.device)
+    fb[dim - 1] = 1.0
+    check(bool((k.normals[few] == fb).all()),
+          f"{name}: a neighbourhood of fewer than {min_count} points does "
+          "not carry the unit normal along the last axis")
+    rec_n = hold_normals(name, k.evals, k.normals, p.evals, p.normals,
+                         mask & ~few, r2)
+    qp = S.presort_ref(pts, mask)
+    rec_o = cov_oracle_errors(pts, qp, k, p, r2, q_tile, min(W, n), rng)
+    if oracle_tol is not None:
+        check(rec_o["max_abs_err_cov_kernel_vs_f64"] <= oracle_tol,
+              f"{name}: kernel covariance is "
+              f"{rec_o['max_abs_err_cov_kernel_vs_f64']} m^2 from float64 "
+              f"(> {oracle_tol})")
+
+    # the launch alone (packs built), the whole wrapper, the plain version
+    r = float(np.float32(radius))
+    Wc = min(W, n)
+
+    def launch():
+        return P._stats_kernel(qp, qp, r, r2, q_tile, Wc, min_count)
+    lo_ms, ms, hi_ms = time_cuda_stats(launch)
+    PROFILE_JOBS.append(("device_ms", name, launch, "radius_pca_kernel"))
+    wrapper_ms = time_cuda(lambda: P.radius_pca_normals(
+        pts, pts, mask, mask, max_radius=radius, q_tile=q_tile, W=W,
+        min_count=min_count))
+    pack_ms = time_cuda(lambda: S.presort_ref(pts, mask))
+    plain_ms = time_cuda(lambda: P._stats_plain(qp, qp, r, r2, q_tile, Wc,
+                                                min_count), reps=2, warmup=1)
     P.radius_pca.launches = before
 
-    spans = (b_end - b_start)
-    valid_per_block = qm_s.view(-1, S._KERNEL_BLOCK).sum(1)
-    pairs = int((spans * valid_per_block).sum())
-    hits = int(cnt_k.sum())
-    nm = P._n_moments(dim)
-    # per pair the distance test; per hit 1 + D adds and D + D(D-1)/2 FMAs
-    flops = pairs * 3 * dim + hits * (1 + dim + 2 * dim + dim * (dim - 1))
-    n = pts.shape[0]
+    start, end, per_block, _ = P.block_windows_plain(qp, qp, r, q_tile, Wc)
+    spans = end - start
+    pairs = int((spans * per_block).sum())
+    hits = int(k.cnt.sum())
     n_valid = int(mask.sum())
-    bytes_moved = (n * dim * 4 + n + n_valid * dim * 4
-                   + 2 * 4 * spans.shape[0] + n * nm * 4)
+    # per pair the distance test (D subtractions, D products, D - 1 sums, a
+    # compare); per pair inside the radius the count, D sums and
+    # D (D + 1) / 2 multiply-adds
+    hit_ops = 1 + dim + dim * (dim + 1)
+    flops = pairs * 3 * dim + hits * hit_ops
+    # the pack of the valid points, the two counts and the centre read
+    # once; the five outputs and the overflow word written once
+    bytes_moved = (n_valid * 16 + 16 + 4 * dim
+                   + n * 4 * (1 + 3 * dim + dim * dim) + 4)
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES * 1e3
-    live_spans = spans[valid_per_block > 0].float()
-    emit({
-        "phase": "kernel_case", "case": name, "D": dim, "N": n,
-        "valid": n_valid, "radius": radius, "q_tile": q_tile, "W": W,
-        "overflow": int(ov), "overflow_plain": int(ov_p),
-        "count_flips": count_flips, "max_abs_err_moments": max_abs,
-        "max_rel_err_moments": max_rel, "tolerance_rel": 1e-5,
-        "max_abs_err_cov": float((cov_k - cov_p).abs().max()),
+    rec = {
+        "phase": "kernel_case", "case": name, "kernel": "radius_pca",
+        "D": dim, "N": n, "valid": n_valid, "radius": radius,
+        "q_tile": q_tile, "W": W, "min_count": min_count,
+        "overflow": int(k.overflow), "overflow_plain": int(p.overflow),
+        "count_flips": count_flips, "max_abs_err_cov": cov_err,
+        "tolerance_cov": 1e-5 * r2,
+        "max_abs_err_mean": float((k.mean - p.mean).abs().max()),
+        "degenerate_rows": int(few.sum()),
         "mean_neighbours": hits / max(n_valid, 1),
         "kernel_ms": ms, "kernel_ms_min_med_max": [lo_ms, ms, hi_ms],
-        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        "wrapper_ms": wrapper_ms, "pack_ms": pack_ms, "plain_ms": plain_ms,
         "pairs": pairs, "hits": hits,
         "gpairs_per_s": pairs / (ms * 1e-3) / 1e9,
         "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "block_span_min_med_max": [float(live_spans.min()),
-                                   float(live_spans.median()),
-                                   float(live_spans.max())],
-    })
+        "bound_arithmetic": f"({pairs} pairs x {3 * dim} + {hits} hits x "
+                            f"{hit_ops}) f32 operations / 67 TFLOP/s; "
+                            f"{bytes_moved} bytes / 3.35 TB/s",
+        "block_span_min_med_max": [float(spans.min()),
+                                   float(spans.float().median()),
+                                   float(spans.max())],
+    }
+    rec.update(rec_n)
+    rec.update(rec_o)
+    emit(rec)
     if not on_path:
         return None
     return {
         "name": f"radius_pca[D={dim}]", "route": "cuda",
         "source": "norlab_icp_mapper_tpu_torch/csrc/radius_pca.cu",
         "replaces": "ops/pca.py:136",
-        "launches": 0, "max_abs_err": max_abs, "ms": ms,
+        "launches": 0, "max_abs_err": cov_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }
+
+
+def library_eigh_ms(cov, chunk=16384):
+    """The yardstick of the eigensolve: ``torch.linalg.eigh`` over the same
+    matrices in batches of ``chunk`` (timed here, used nowhere in the port).
+    ``(ms, what was timed)``; ``(None, why)`` where the library refuses the
+    batch."""
+    def run():
+        return [torch.linalg.eigh(cov[i:i + chunk])
+                for i in range(0, cov.shape[0], chunk)]
+    try:
+        ms = time_cuda(run, reps=3, warmup=1)
+    except RuntimeError as err:  # the yardstick's failure, not the port's
+        return None, f"torch.linalg.eigh refused the batch: {str(err)[:120]}"
+    return ms, f"torch.linalg.eigh in batches of {chunk} matrices"
+
+
+def eig_case(name, cov, rows, r2, on_path: bool):
+    """The standalone eigensolve (the PCA kernel's epilogue on its own)
+    against the closed forms in tensor operations, then timed."""
+    from norlab_icp_mapper_tpu_torch.ops import eigen as E
+    dim = cov.shape[-1]
+    wrapper, plain = ((E.sym_eig3_smallest, E.sym_eig3_plain) if dim == 3
+                      else (E.sym_eig2_smallest, E.sym_eig2_plain))
+    before = wrapper.launches
+    ev_k, n_k = wrapper(cov)
+    torch.cuda.synchronize()
+    check(wrapper.launches == before + 1, f"{name}: no launch was counted")
+    ev_p, n_p = plain(cov)
+    rec = hold_normals(name, ev_k, n_k, ev_p, n_p, rows, r2)
+    zero = torch.zeros((4, dim, dim), device=cov.device)
+    iso = torch.eye(dim, device=cov.device)[None].repeat(4, 1, 1) * 0.25
+    for label, A in (("zero", zero), ("isotropic", iso)):
+        a, b = wrapper(A), plain(A)
+        check(torch.equal(a[1], b[1]) and
+              float((a[0] - b[0]).abs().max()) <= 1e-6,
+              f"{name}: {label} matrices differ from the plain version")
+    lo_ms, ms, hi_ms = time_cuda_stats(lambda: wrapper(cov))
+    plain_ms = time_cuda(lambda: plain(cov), reps=5)
+    PROFILE_JOBS.append(("device_ms", name, lambda: wrapper(cov),
+                         "sym_eig_kernel"))
+    PROFILE_JOBS.append(("launches", f"{name}/plain", lambda: plain(cov),
+                         None))
+    library_ms, library_note = library_eigh_ms(cov)
+    wrapper.launches = before
+    n = cov.shape[0]
+    # a matrix read, eigenvalues and vector written; ~150 operations each
+    bytes_moved = n * 4 * (dim * dim + 2 * dim)
+    ops_ms = n * 150 / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    rec.update({
+        "phase": "kernel_case", "case": name, "kernel": "sym_eig", "D": dim,
+        "N": n, "kernel_ms": ms, "kernel_ms_min_med_max": [lo_ms, ms, hi_ms],
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": library_note,
+        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+        "bound_arithmetic": f"{bytes_moved} bytes / 3.35 TB/s; {n} x ~150 "
+                            "f32 operations / 67 TFLOP/s",
+    })
+    emit(rec)
+    if not on_path:
+        return None
+    return {
+        "name": f"sym_eig[D={dim}]", "route": "cuda",
+        "source": "norlab_icp_mapper_tpu_torch/csrc/sym_eig.cu",
+        "replaces": "ops/eigen.py:29",
+        "launches": 0, "max_abs_err": rec["max_abs_err_evals"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def count_device_launches(fn):
+    """Device activities (kernels, copies, fills) that one call of ``fn``
+    starts, counted by ``torch.profiler`` on the card; None where the
+    profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def earlier_form_stages(pts, mask, radius, q_tile, W, k):
+    """The radius branch of the SurfaceNormal filter as it stood before the
+    one-launch kernel, stage by stage in the tensor operations it was made
+    of: centring on the centroid, sort and gathers, the windows, (the
+    moment kernel, which no longer exists: its stage is left out and its
+    sums are zeros here,) un-sort and the covariance from raw moments, the
+    closed-form eigensolve, the degenerate rule and the descriptors.  Kept
+    so that the one-launch form is timed against what it replaced on the
+    same card in the same call.  Returns ``[(name, fn)]``; each ``fn``
+    reads the state its predecessors left."""
+    from norlab_icp_mapper_tpu_torch.ops import eigen as E
+    from norlab_icp_mapper_tpu_torch.ops import nn_sweep as S
+    n, dim = pts.shape
+    nm = 1 + dim + dim * (dim + 1) // 2
+    dev = pts.device
+    st = {}
+
+    def centring():
+        qsum = torch.where(mask[:, None], pts, torch.zeros_like(pts)).sum(0)
+        qcnt = torch.clamp(mask.to(torch.float32).sum(), min=1.0)
+        st["c"] = qsum / qcnt
+        st["pc"] = pts - st["c"]
+
+    def sort_gathers():
+        pc = st["pc"]
+        ref_x = torch.where(mask, pc[:, 0], torch.full_like(pc[:, 0], S.BIG))
+        order = torch.sort(ref_x, stable=True).indices
+        st["order"] = order
+        st["ref_s"] = pc[order].contiguous()
+        st["mask_s"] = mask[order]
+        st["ref_xs"] = ref_x[order].contiguous()
+        st["pack"] = S.RefPack(st["ref_s"], st["mask_s"], st["ref_xs"], order,
+                               mask.sum(), torch.zeros((dim,), device=dev))
+        pad = -(-n // q_tile) * q_tile - n
+        st["q_s"] = S.pad_rows(st["ref_s"], pad, S.BIG)
+        st["qm_s"] = S.pad_rows(st["mask_s"], pad, False)
+        st["qx_s"] = S.pad_rows(st["ref_xs"], pad, S.BIG)
+
+    def windows():
+        r = torch.tensor(float(radius), dtype=torch.float32, device=dev)
+        st["win"] = S.sweep_windows(st["qx_s"], st["qm_s"], st["pack"], r,
+                                    q_tile, min(W, n), 128)
+
+    def unsort_unpack():
+        acc_sorted = st["acc"][:, :n]
+        inv = torch.empty_like(st["order"])
+        inv[st["order"]] = torch.arange(n, device=dev)
+        acc = acc_sorted[:, inv]
+        acc = torch.where(mask[None, :], acc, torch.zeros_like(acc))
+        cnt = acc[0]
+        safe = torch.clamp(cnt, min=1.0)
+        mean = (acc[1:1 + dim] / safe).T
+        m2 = acc[1 + dim:1 + 2 * dim] / safe
+        cov = torch.zeros((n, dim, dim), dtype=torch.float32, device=dev)
+        for a in range(dim):
+            cov[:, a, a] = m2[a] - mean[:, a] * mean[:, a]
+        row = 1 + 2 * dim
+        for a in range(dim):
+            for b in range(a + 1, dim):
+                off = acc[row] / safe - mean[:, a] * mean[:, b]
+                cov[:, a, b] = off
+                cov[:, b, a] = off
+                row += 1
+        st["cnt"], st["cov"] = cnt, cov
+        st["mean"] = mean + torch.where(cnt[:, None] > 0, st["c"][None, :],
+                                        torch.zeros_like(st["c"])[None, :])
+
+    def eigensolve():
+        plain = E.sym_eig3_plain if dim == 3 else E.sym_eig2_plain
+        st["evals"], st["normals"] = plain(st["cov"])
+
+    def fallback_descriptors():
+        degen = st["cnt"] < float(min(k, 3))
+        fallback = torch.zeros_like(st["normals"])
+        fallback[:, dim - 1] = 1.0
+        st["out"] = (torch.where(degen[:, None], fallback, st["normals"]),
+                     st["evals"])
+
+    st["acc"] = torch.zeros((nm, -(-n // q_tile) * q_tile), device=dev)
+    return [("centring", centring), ("sort_gathers", sort_gathers),
+            ("windows", windows), ("unsort_unpack", unsort_unpack),
+            ("eigensolve", eigensolve),
+            ("fallback_descriptors", fallback_descriptors)]
+
+
+def split_stages(label, stages):
+    """Run the stages in order once, then time each between CUDA events:
+    ``{name: ms}``; their device launches are counted in the profile
+    phase under ``label/name``."""
+    for _, fn in stages:
+        fn()
+    torch.cuda.synchronize()
+    for name, fn in stages:
+        PROFILE_JOBS.append(("launches", f"{label}/{name}", fn, None))
+    return {name: time_cuda(fn, reps=20, warmup=3) for name, fn in stages}
+
+
+def phase_split(mp, knn, radius):
+    """The SurfaceNormal radius branch at the path shape, now and in its
+    earlier form, stage by stage between CUDA events, with the device
+    launches of each stage as ``torch.profiler`` counts them."""
+    from norlab_icp_mapper_tpu_torch.filters import core as F
+    from norlab_icp_mapper_tpu_torch.ops import nn_sweep as S
+    from norlab_icp_mapper_tpu_torch.ops import pca as P
+    pts, mask = mp.positions, mp.mask
+    W = 2048 if radius <= 1.0 else 4096
+    st = {}
+
+    def pack():
+        st["qp"] = S.presort_ref(pts, mask)
+
+    def launch():
+        st["out"] = P._stats_kernel(
+            st["qp"], st["qp"], float(np.float32(radius)),
+            float(np.float32(radius * radius)), 1024, W, min(knn, 3))
+
+    filt = F.filter_registry.create(
+        "SurfaceNormalDataPointsFilter",
+        {"knn": knn, "maxDist": radius, "keepEigenValues": 1})
+    calls = P.radius_pca.launches
+    filt.apply(mp)
+    check(P.radius_pca.launches == calls + 1,
+          "phase_split: the filter's radius branch is not one kernel launch")
+
+    now = split_stages("phase_split/now",
+                       [("centroid_sort_pack", pack),
+                        ("zero_fill_and_kernel", launch),
+                        ("whole_filter", lambda: filt.apply(mp))])
+    earlier = split_stages(
+        "phase_split/earlier_form",
+        earlier_form_stages(pts, mask, radius, 1024, W, knn))
+    return {"phase": "phase_split", "N": pts.shape[0],
+            "valid": int(mask.sum()), "radius": radius, "q_tile": 1024,
+            "W": W, "now_ms": now,
+            "earlier_form_without_its_kernel_ms": earlier,
+            "earlier_form_without_its_kernel_ms_sum": sum(earlier.values())}
 
 
 def default_like_map(scans, poses, min_dist=0.15):
@@ -837,12 +1232,23 @@ def phase_kernels(scans, poses, seed):
                    twin_mask, 3, 2.0, 1024, W, 112, overflows=True)
     sweep_case("hall_twins_k1_W8192", scan_m.positions, smask, twin_pos,
                twin_mask, 1, 2.0, 1024, 8192, 112, overflows=True)
+    # the kernel's covariance must lie within 1e-5 m^2 of float64 here
     entries.append(pca_case("surface_normals_self", mp.positions, mp.mask,
-                            1.0, 1024, 2048, on_path=True))
+                            1.0, 1024, 2048, on_path=True, rng=rng,
+                            oracle_tol=1e-5))
+    emit(phase_split(mp, 10, 1.0))
     p2 = torch.from_numpy(
         rng.uniform(-20, 20, size=(4096, 2)).astype(np.float32)).to(dev)
     m2 = torch.from_numpy(rng.random(4096) > 0.1).to(dev)
-    pca_case("small_2d", p2, m2, 1.0, 1024, 2048, on_path=False)
+    pca_case("small_2d", p2, m2, 1.0, 1024, 2048, on_path=False, rng=rng)
+    # the standalone eigensolve on the covariances of both clouds
+    from norlab_icp_mapper_tpu_torch.ops import pca as P
+    cnt, _, cov, _ = P.radius_pca_plain(mp.positions, mp.positions, mp.mask,
+                                        mp.mask, 1.0, 1024, 2048)
+    entries.append(eig_case("eigensolve_map_covariances", cov,
+                            mp.mask & (cnt >= 3), 1.0, on_path=True))
+    cnt2, _, cov2, _ = P.radius_pca_plain(p2, p2, m2, m2, 1.0, 1024, 2048)
+    eig_case("eigensolve_2d", cov2, m2 & (cnt2 >= 3), 1.0, on_path=False)
     exact_cases(rng, dev)
     entries += knn_cases(scans, poses, rng, dev)
     return entries
@@ -886,16 +1292,22 @@ def exact_cases(rng, dev):
     sweep_case("exact_dynamic_points_angular", bm.positions, bm.mask,
                bs.positions, bs.mask, 1, 0.02, 1024, 1024, 112, exact=True)
     pca_case("exact_surface_normals_self", mp.positions, mp.mask, 1.0, 1024,
-             2048, on_path=False, exact=True)
+             2048, on_path=False, rng=rng, exact=True)
+    # the same cloud 500 m from the origin on every axis
+    far = mp.positions + torch.tensor([500.0, -500.0, 500.0], device=dev)
+    pca_case("exact_surface_normals_offset_500m", far, mp.mask, 1.0, 1024,
+             2048, on_path=False, rng=rng, exact=True)
 
 
 def reset_counts():
     from norlab_icp_mapper_tpu_torch.ops.nn import knn
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
+    from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
     sweep_knn.launches = 0
     sweep_knn.launches_by_shape = {}
     radius_pca.launches = 0
+    sym_eig3_smallest.launches = 0
     knn.launches = 0
     knn.launches_by_shape = {}
 
@@ -904,11 +1316,13 @@ def read_counts():
     from norlab_icp_mapper_tpu_torch.ops.nn import knn
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
+    from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
     out = {f"sweep_knn[D={d},k={k}]": v
            for (d, k), v in sweep_knn.launches_by_shape.items()}
     out.update({f"knn_brute[D={d},k={k}]": v
                 for (d, k), v in knn.launches_by_shape.items()})
     out["radius_pca[D=3]"] = radius_pca.launches
+    out["sym_eig[D=3]"] = sym_eig3_smallest.launches
     out["sweep_knn"] = sweep_knn.launches
     out["knn_brute"] = knn.launches
     return out
@@ -962,6 +1376,21 @@ def drive(config_name, scans, priors, phase):
         "last_scan_overflow_tiles": overflow,
     }
     return mapper, rec
+
+
+# Final map sizes and iterations per scan of the bundled configs on this
+# sequence (seed 0) as measured with raw-moment normals; per-query centred
+# normals may move them a little (DynamicPoints and the point-to-plane
+# minimizer read normals), never by more than these gates.
+IDENTITY_MAP_POINTS = 87_386
+P2PLANE_MAP_POINTS = 83_399
+P2PLANE_ITERATIONS = 20.4
+
+
+def check_map_size(phase, n, expected):
+    check(abs(n - expected) <= 0.01 * expected,
+          f"{phase}: final map holds {n} points, not within 1 % of "
+          f"{expected}")
 
 
 def check_map(mapper, rec, n_scans):
@@ -1195,6 +1624,9 @@ def finish_no_radius_phase(mapper, rec, priors, poses):
     check(launch["knn_brute[D=3,k=10,normals]"] == n_merges,
           f"{phase}: {n_merges} merges but "
           f"{launch['knn_brute[D=3,k=10,normals]']} normals passes")
+    check(launch["sym_eig[D=3]"] == n_merges,
+          f"{phase}: {n_merges} merges but {launch['sym_eig[D=3]']} "
+          "launches of the eigensolve")
     check(pd == n_merges - 1,
           f"{phase}: {n_merges} merges (the first creates the map) but "
           f"{pd} PointDistance searches")
@@ -1232,6 +1664,10 @@ def main() -> int:
           and id_launch.get("sweep_knn[D=2,k=1]", 0) > 0
           and id_launch["radius_pca[D=3]"] > 0,
           f"identity: a kernel of the path was never launched: {id_launch}")
+    check(id_launch["radius_pca[D=3]"] == len(scans),
+          "identity: the SurfaceNormal filter is not one launch per scan: "
+          f"{id_launch}")
+    check_map_size("identity", rec["final_map_count"], IDENTITY_MAP_POINTS)
 
     # ---- p2plane: perturbed priors, the first pose anchors the map
     rng = np.random.default_rng(args.seed + 1)
@@ -1254,7 +1690,11 @@ def main() -> int:
     check(rec_ate < prior_ate / 3.0,
           f"p2plane: recovered ATE {rec_ate} not below a third of the "
           f"prior's {prior_ate}")
-    check(statistics.mean(its) > 1.0, "p2plane: the solver did not iterate")
+    check(rec_ate <= 0.004, f"p2plane: recovered ATE {rec_ate} m > 0.004 m")
+    check(abs(statistics.mean(its) - P2PLANE_ITERATIONS) <= 1.0,
+          f"p2plane: {statistics.mean(its)} iterations per scan, not within "
+          f"1 of {P2PLANE_ITERATIONS}")
+    check_map_size("p2plane", rec["final_map_count"], P2PLANE_MAP_POINTS)
     check(p2_launch.get("sweep_knn[D=3,k=3]", 0) > 0
           and p2_launch.get("sweep_knn[D=2,k=1]", 0) > 0
           and p2_launch["radius_pca[D=3]"] > 0,
@@ -1282,6 +1722,8 @@ def main() -> int:
                                    {"icp": p2point_icp(True)},
                                    "p2point_bound")
     finish_no_radius_phase(mapper, rec, priors, poses)
+
+    phase_profile()
 
     # ---- the kernels line: launches are the main paths' (three configs)
     for e in entries:

@@ -283,26 +283,19 @@ class SurfaceNormalFilter(DataPointsFilter):
         return out
 
     def _apply_radius_pca(self, batch, k, max_dist):
-        from ..ops.pca import radius_pca
+        from ..ops.pca import radius_pca_normals
         # sweep window scales with the radius: a q_tile of sorted queries
         # plus 2r of refs must fit in W (pair work is N*W, so don't pay a
-        # 2 m-sized window for sub-metre neighborhoods)
-        W = 2048 if max_dist <= 1.0 else 4096
-        cnt, mean, cov, overflow = radius_pca(
-            batch.positions, batch.positions, batch.mask, batch.mask,
-            max_radius=max_dist, q_tile=1024, W=W)
-        self.last_overflow = overflow
-        if batch.dim == 3:
-            evals, normals = sym_eig3_smallest(cov)
-        else:
-            evals, normals = sym_eig2_smallest(cov)
-        # degenerate neighborhoods (< knn points in radius, lpm's k as the
+        # 2 m-sized window for sub-metre neighborhoods).
+        # Degenerate neighborhoods (< knn points in radius, lpm's k as the
         # minimum sample count) keep a unit normal along the last axis
-        # rather than noise from a rank-deficient covariance
-        degen = cnt < float(min(k, 3))
-        fallback = torch.zeros_like(normals)
-        fallback[:, batch.dim - 1] = 1.0
-        normals = torch.where(degen[:, None], fallback, normals)
+        # rather than noise from a rank-deficient covariance: min_count.
+        # On the card this is a sort, a pack and one kernel launch.
+        W = 2048 if max_dist <= 1.0 else 4096
+        cnt, evals, normals, overflow = radius_pca_normals(
+            batch.positions, batch.positions, batch.mask, batch.mask,
+            max_radius=max_dist, q_tile=1024, W=W, min_count=min(k, 3))
+        self.last_overflow = overflow
         out = batch
         if self.params["keepNormals"] >= 0.5:
             out = out.with_descriptor("normals", normals)

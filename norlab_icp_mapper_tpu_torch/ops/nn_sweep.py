@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 __all__ = ["sweep_knn", "sweep_knn_plain", "presort_ref", "presort_queries",
+           "masked_centroid",
            "RefPack", "BIG", "sweep_windows", "pack_rows4", "chunking",
            "search_chunked_plain"]
 
@@ -87,9 +88,11 @@ def pack_rows4(coords: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     m, dim = coords.shape
     if dim not in (2, 3):
         raise ValueError(f"the packed layout holds D in (2, 3); got D={dim}")
-    out = torch.zeros((m, 4), dtype=torch.float32, device=coords.device)
+    out = torch.empty((m, 4), dtype=torch.float32, device=coords.device)
     out[:, :dim] = coords
-    out.view(torch.int32)[:, 3] = ids.to(torch.int32)
+    if dim == 2:
+        out[:, 2] = 0.0
+    out.view(torch.int32)[:, 3] = ids  # converted to int32 by the copy
     return out
 
 
@@ -116,24 +119,33 @@ class RefPack(NamedTuple):
     center: torch.Tensor  # f32[D] centroid of the valid refs
 
 
-def presort_ref(ref: torch.Tensor, ref_mask: torch.Tensor) -> RefPack:
+def masked_centroid(x: torch.Tensor, mask: torch.Tensor,
+                    n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``f32[D]``: the mean of the valid rows of ``x`` (zeros if none);
+    ``n_valid`` is ``mask.sum()`` where the caller already has it."""
+    if n_valid is None:
+        n_valid = mask.sum()
+    denom = torch.clamp(n_valid, min=1).to(torch.float32)
+    return torch.where(mask[:, None], x, 0.0).sum(0) / denom
+
+
+def presort_ref(ref: torch.Tensor, ref_mask: torch.Tensor,
+                center: Optional[torch.Tensor] = None) -> RefPack:
     """Sort refs by x, invalid refs to the end (x -> BIG), CENTERED on the
-    valid-ref centroid.
+    valid-ref centroid (or on ``center``, for a cloud that shares another
+    cloud's frame).
 
     The reference cloud is static across the iterations of a solve (and
     across scans until a merge), so the sort is hoisted out of the loop.
     ``sweep_knn`` subtracts the same ``center`` from the queries."""
-    maskf = ref_mask.to(torch.float32)
-    denom = torch.clamp(maskf.sum(), min=1.0)
-    center = torch.where(ref_mask[:, None], ref,
-                         torch.zeros_like(ref)).sum(0) / denom
+    n_valid = ref_mask.sum()
+    if center is None:
+        center = masked_centroid(ref, ref_mask, n_valid)
     ref_c = ref - center
-    ref_x = torch.where(ref_mask, ref_c[:, 0],
-                        torch.full_like(ref_c[:, 0], BIG))
-    ref_order = torch.sort(ref_x, stable=True).indices
+    ref_xs, ref_order = torch.sort(torch.where(ref_mask, ref_c[:, 0], BIG),
+                                   stable=True)
     return RefPack(pack_rows4(ref_c[ref_order], ref_order),
-                   ref_mask[ref_order], ref_x[ref_order].contiguous(),
-                   ref_order, ref_mask.sum(), center)
+                   ref_mask[ref_order], ref_xs, ref_order, n_valid, center)
 
 
 def presort_queries(pos: torch.Tensor, mask: torch.Tensor):

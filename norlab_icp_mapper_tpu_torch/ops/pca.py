@@ -1,217 +1,275 @@
-"""Radius-neighborhood PCA statistics: the surface-normal engine.
+"""Radius-neighborhood PCA: the surface-normal engine.
 
 A surface normal only needs the *covariance of the neighborhood*, not the
 identity of the k nearest points.  So instead of a top-k search this op
-accumulates, per query point, the zeroth/first/second moments of all
-reference points within ``max_radius``:
+accumulates, per query point ``q_i``, the zeroth/first/second moments of all
+reference points within ``max_radius``, taken about the query itself:
 
     cnt_i   = sum_j  w_ij
-    sx_i    = sum_j  w_ij * x_j
-    sxx_i   = sum_j  w_ij * x_j x_j^T          w_ij = [ |x_j - q_i|^2 <= r^2 ]
+    sd_i    = sum_j  w_ij * d_ij               d_ij = x_j - q_i
+    sdd_i   = sum_j  w_ij * d_ij d_ij^T        w_ij = [ |d_ij|^2 <= r^2 ]
+
+    mean_i  = q_i + sd_i / cnt_i
+    cov_i   = sdd_i / cnt_i - (sd_i / cnt_i)(sd_i / cnt_i)^T
 
 on the same sorted-sweep schedule as ``nn_sweep.sweep_knn``.
 
-Numerical note: ``cov = sxx/cnt - mean mean^T`` cancels catastrophically
-when coordinates are far from the origin (error ~ eps * |x|^2).
-``radius_pca`` therefore centers both clouds on the query cloud's masked
-mean first and restores ``mean + c`` afterwards.
+Numerical note: the raw-moment form ``sum(x x^T)/cnt - mean mean^T`` cancels
+catastrophically (error ~ eps * |x|^2 * cnt), which at a cloud extent of tens
+of metres is above the smallest eigenvalue of a wall seen with 1 cm of noise.
+Sums of ``d`` do not: ``|d| <= r``.  Both clouds are still centred on the
+query cloud's masked mean first, exactly as the reference centres them, so
+that the gate squares the same ``(x_j - c) - (q_i - c)``; ``mean`` is
+returned in the original frame.
 
 Semantics vs lpm: lpm fits the PCA to the k nearest neighbors (radius-capped
 when maxDist is set); this op fits it to *all* neighbors within the radius.
 
 The kernel
 ----------
-On a CUDA tensor ``radius_pca`` launches ``csrc/radius_pca.cu``, written by
-hand for Hopper; it replaces the Pallas TPU kernel ``_pca_fused_kernel``
-(``ops/pca.py`` of the JAX package, launched by ``_pca_fused``).
+On a CUDA tensor ``radius_pca`` and ``radius_pca_normals`` launch
+``csrc/radius_pca.cu``, written by hand for Hopper; it replaces the Pallas TPU
+kernel ``_pca_fused_kernel`` (``ops/pca.py:136`` of the JAX package, launched
+by ``_pca_fused``) and, on this card, the tensor operations that XLA fused
+around it under ``jit``.
 
-* What bounds it on an H100: operations -- the same per-pair distance test
-  as the sweep matcher, plus ``n_moments`` adds for each pair that passes.
-  Output is ``n_moments`` floats per query; the window of a block is read
-  once and served from shared memory.
-* What the design does about it: one thread per query holds its 10 (D=3) or
-  6 (D=2) sums in registers, and blocks of 128 queries get windows narrowed
-  to their own x range, as in ``nn_sweep``.  The TPU form's 0/1 gate matrix,
-  its ``M @ W`` matmul and the padding of the moment rows to 16 are not
-  carried over.
+* What bounds it on an H100: operations, and among them instruction
+  dispatch -- the sweep matcher's per-pair distance test (8 unfused
+  arithmetic steps and a compare) plus 13 for each pair that passes.  The
+  window of a block is read once and served from shared memory; the outputs
+  are ``4 (1 + 3 D + D D)`` bytes per query.  But the kernel alone was a
+  twelfth of the phase it served: eager PyTorch spent the rest in some 180
+  small launches around it (centring, gathers, windows, un-sort, covariance,
+  a closed-form eigensolve of ~60 tensor operations).
+* What the design does about it: one launch from sorted points to normals.
+  The clouds are packed once as ``f32[M, 4]`` (centred coordinates and the
+  original row, valid first, ascending x: ``nn_sweep.presort_ref``; a cloud
+  against itself is its own query pack); threads exist for valid queries
+  only, through the packed pair loop of ``csrc/sweep_common.cuh``, four
+  lanes to a query, each taking every fourth reference of a staged tile (a
+  map's valid queries alone are too few warps to hide the loop's
+  latencies); a block finds its window by binary search over the packed x
+  and counts its tile's overflow; the sums are per-query centred; mean,
+  covariance, eigenvalues and normal (``csrc/sym_eig.cuh``) are computed in
+  registers and written to the query's original row.  The TPU form's 0/1
+  gate matrix, its ``M @ W`` matmul and the padding of the moment rows to 16
+  are not carried over.
 
-On a CPU tensor the wrapper runs ``_moments_plain``; ``radius_pca_plain``
-forces it on any device for the tests and the on-card comparison.
+On a CPU tensor the wrappers run :func:`_stats_plain`, the same function in
+ordinary tensor operations (windows from ``nn_sweep.sweep_windows``, the
+closed forms of ``ops/eigen.py``); ``radius_pca_plain`` and
+``radius_pca_normals_plain`` force it on any device for the tests and the
+on-card comparison.  A CUDA tensor never takes it from the wrappers: the
+kernel launches or the call raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .eigen import sym_eig2_plain, sym_eig3_plain
 from .nn_sweep import (BIG, RefPack, _KERNEL_BLOCK, _check_kernel_args,
-                       _kernel_block_for, _pair_d2, pad_rows, sweep_windows)
+                       _pair_d2, pad_rows, presort_ref, sweep_windows)
 
-__all__ = ["radius_pca", "radius_pca_plain"]
+__all__ = ["radius_pca", "radius_pca_plain", "radius_pca_normals",
+           "radius_pca_normals_plain", "block_windows_plain"]
 
-
-def _n_moments(dim: int) -> int:
-    # 1 (count) + D (sum) + D*(D+1)/2 (upper-triangular second moments)
-    return 1 + dim + dim * (dim + 1) // 2
-
-
-def _moment_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Stack moment rows for points given planar coords x [>=D, T]."""
-    rows = [torch.ones_like(x[0])]
-    rows += [x[a] for a in range(dim)]
-    rows += [x[a] * x[a] for a in range(dim)]
-    for a in range(dim):
-        for b in range(a + 1, dim):
-            rows.append(x[a] * x[b])
-    return torch.stack(rows, dim=0)  # [n_moments, T]
+_LANES_PER_QUERY = 4
+_BLOCK_QUERIES = _KERNEL_BLOCK // _LANES_PER_QUERY  # queries per block
 
 
-def _unpack_stats(acc: torch.Tensor, dim: int):
-    """acc [n_moments, N] -> (cnt [N], mean [N, D], cov [N, D, D])."""
-    cnt = acc[0]
+class PcaStats(NamedTuple):
+    """Everything one pass computes, rows in the queries' original order."""
+    cnt: torch.Tensor  # f32[N] neighbours within the radius
+    mean: torch.Tensor  # f32[N, D] their mean, original frame
+    cov: torch.Tensor  # f32[N, D, D] their covariance
+    evals: torch.Tensor  # f32[N, D] its eigenvalues, ascending
+    normals: torch.Tensor  # f32[N, D] unit eigenvector of the smallest
+    overflow: torch.Tensor  # 0-d: live tiles whose candidates exceeded W
+
+
+def _moments_epilogue(cnt, sd, sdd, q, center):
+    """``(mean [N, D], cov [N, D, D])`` from the per-query centred sums, as
+    the kernel's epilogue computes them: ``sd [N, D]`` the sum of
+    ``d = x - q``, ``sdd [N, D (D + 1) / 2]`` the sum of ``d d^T`` (diagonal
+    first, then xy, xz, yz), ``q`` the centred query.  ``mean`` is
+    ``(q + sd / cnt) + center`` and zero where ``cnt == 0``."""
+    dim = sd.shape[1]
     safe = torch.clamp(cnt, min=1.0)
-    mean = (acc[1:1 + dim] / safe).T  # [N, D]
-    m2 = acc[1 + dim:1 + 2 * dim] / safe  # diag, [D, N]
-    cov = torch.zeros((acc.shape[1], dim, dim), dtype=torch.float32,
-                      device=acc.device)
-    for a in range(dim):
-        cov[:, a, a] = m2[a] - mean[:, a] * mean[:, a]
-    r = 1 + 2 * dim
-    for a in range(dim):
-        for b in range(a + 1, dim):
-            off = acc[r] / safe - mean[:, a] * mean[:, b]
-            cov[:, a, b] = off
-            cov[:, b, a] = off
-            r += 1
-    return cnt, mean, cov
+    s = sd / safe[:, None]
+    mean = torch.where(cnt[:, None] > 0, (q + s) + center,
+                       torch.zeros_like(s))
+    pairs = [(a, a) for a in range(dim)] + \
+        [(a, b) for a in range(dim) for b in range(a + 1, dim)]
+    upper = {ab: sdd[:, i] / safe - s[:, ab[0]] * s[:, ab[1]]
+             for i, ab in enumerate(pairs)}
+    cov = torch.stack([torch.stack([upper[(min(a, b), max(a, b))]
+                                    for b in range(dim)], dim=1)
+                       for a in range(dim)], dim=1)
+    return mean, cov
 
 
-def _moments_plain(q_s, qm_s, ref_s, t_start, t_end, live, r2, q_tile):
-    """Plain version of the kernel: per live tile, the 0/1 gate of the
-    tile's window times the window's moment rows."""
-    n_pad, dim = q_s.shape
-    nm = _n_moments(dim)
-    acc = torch.zeros((nm, n_pad), dtype=torch.float32, device=q_s.device)
+def _normals_epilogue(cnt, cov, min_count: int):
+    """Eigenvalues and normal of each covariance by the closed forms of
+    ``ops/eigen.py``; neighbourhoods of fewer than ``min_count`` points get a
+    unit normal along the last axis."""
+    dim = cov.shape[-1]
+    evals, normals = (sym_eig3_plain if dim == 3 else sym_eig2_plain)(cov)
+    fallback = torch.zeros_like(normals)
+    fallback[:, dim - 1] = 1.0
+    few = cnt < float(min_count)
+    return evals, torch.where(few[:, None], fallback, normals)
+
+
+def _stats_plain(qp: RefPack, rp: RefPack, r: float, r2: float, q_tile: int,
+                 W: int, min_count: int) -> PcaStats:
+    """Plain version of the kernel: per live tile of ``q_tile`` sorted
+    queries, ``d = window - query``, the gate from ``_pair_d2``, masked sums
+    of ``d`` and ``d d^T``; then the kernel's epilogue in tensor operations
+    and the rows scattered to the queries' original index."""
+    n = qp.ref_s.shape[0]
+    dim = qp.center.shape[0]
+    dev = qp.ref_s.device
+    pad = -(-n // q_tile) * q_tile - n
+    q_s = pad_rows(qp.ref_s[:, :dim], pad, BIG)
+    qm_s = pad_rows(qp.ref_mask_s, pad, False)
+    qx_s = pad_rows(qp.ref_xs, pad, BIG)
+    t_start, t_end, live, overflow, _, _ = sweep_windows(
+        qx_s, qm_s, rp, torch.tensor(r, dtype=torch.float32, device=dev),
+        q_tile, W, q_tile)
+    ref_c = rp.ref_s[:, :dim]
+    n_pad = q_s.shape[0]
+    cnt = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    sd = torch.zeros((n_pad, dim), dtype=torch.float32, device=dev)
+    sdd = torch.zeros((n_pad, dim * (dim + 1) // 2), dtype=torch.float32,
+                      device=dev)
     starts, ends, lives = t_start.tolist(), t_end.tolist(), live.tolist()
     for t, (s0, e0, lv) in enumerate(zip(starts, ends, lives)):
         if not lv or e0 <= s0:
             continue
         sl = slice(t * q_tile, (t + 1) * q_tile)
-        win = ref_s[s0:e0]
-        w = ((_pair_d2(q_s[sl], win) <= r2)
-             & qm_s[sl, None]).to(torch.float32)  # [Q, Wt]
-        M = _moment_rows(win.T, dim)  # [nm, Wt]
-        acc[:, sl] = M @ w.T
-    return acc
+        q, win = q_s[sl], ref_c[s0:e0]
+        w = ((_pair_d2(q, win) <= r2) & qm_s[sl, None]).to(torch.float32)
+        d = [win[None, :, a] - q[:, None, a] for a in range(dim)]  # [Q, Wt]
+        cnt[sl] = w.sum(1)
+        col = dim
+        for a in range(dim):
+            sd[sl, a] = (d[a] * w).sum(1)
+            sdd[sl, a] = (d[a] * d[a] * w).sum(1)
+        for a in range(dim):
+            for b in range(a + 1, dim):
+                sdd[sl, col] = (d[a] * d[b] * w).sum(1)
+                col += 1
+    mean, cov = _moments_epilogue(cnt, sd, sdd, q_s, qp.center)
+    evals, normals = _normals_epilogue(cnt, cov, min_count)
+    # valid queries come first in the sorted order; their original rows
+    n_q = int(qp.n_valid)
+    rows = qp.ref_order[:n_q]
+    out = [torch.zeros((n,) + tuple(x.shape[1:]), dtype=torch.float32,
+                       device=dev) for x in (cnt, mean, cov, evals, normals)]
+    for o, x in zip(out, (cnt, mean, cov, evals, normals)):
+        o[rows] = x[:n_q]
+    return PcaStats(*out, overflow)
 
 
-def _moments_kernel(q_s, qm_s, ref_s, b_start, b_end, r2, n_rows):
-    """Launch ``csrc/radius_pca.cu`` on the current stream."""
+def block_windows_plain(qp: RefPack, rp: RefPack, r: float, q_tile: int,
+                        W: int, block: int = _BLOCK_QUERIES):
+    """The windows as a block of the kernel finds them, in plain tensor
+    operations: per block of ``block`` sorted valid queries its first and
+    last packed x, the bounds of its tile and of the block by
+    ``searchsorted`` over the valid references' x, ``(start, end, queries,
+    overflow)``.  Reads the two counts to the host; for the tests and for
+    the pair count of the on-card bound."""
+    n_q, m = int(qp.n_valid), int(rp.n_valid)
+    dev = qp.ref_s.device
+    W = min(W, rp.ref_s.shape[0])
+    first = torch.arange(0, n_q, block, device=dev)
+    last = torch.clamp(first + block, max=n_q) - 1
+    t_first = (first // q_tile) * q_tile
+    t_last = torch.clamp(t_first + q_tile, max=n_q) - 1
+    qx, rx = qp.ref_s[:n_q, 0], rp.ref_s[:m, 0].contiguous()
+    rt = torch.tensor(r, dtype=torch.float32, device=dev)
+    lo = torch.searchsorted(rx, qx[t_first] - rt)
+    hi = torch.searchsorted(rx, qx[t_last] + rt)
+    overflow = ((hi - lo > W) & (first % q_tile == 0)).sum()
+    t_end = torch.minimum(hi, lo + W)
+    start = torch.maximum(torch.searchsorted(rx, qx[first] - rt), lo)
+    end = torch.minimum(torch.searchsorted(rx, qx[last] + rt, right=True),
+                        t_end)
+    return start, torch.maximum(end, start), last - first + 1, overflow
+
+
+def _stats_kernel(qp: RefPack, rp: RefPack, r: float, r2: float, q_tile: int,
+                  W: int, min_count: int) -> PcaStats:
+    """Launch ``csrc/radius_pca.cu`` on the current stream: one launch from
+    the two packs to every output."""
     from ._build import load
-    dim = q_s.shape[1]
+    n = qp.ref_s.shape[0]
+    dim = qp.center.shape[0]
+    dev = qp.ref_s.device
     if dim not in (2, 3):
         raise ValueError(f"radius_pca kernel supports D in (2, 3); got {dim}")
-    if q_s.dtype != torch.float32 or ref_s.dtype != torch.float32:
+    for pack in (qp, rp):
+        if (pack.ref_s.dtype != torch.float32 or pack.ref_s.ndim != 2
+                or pack.ref_s.shape[1] != 4
+                or pack.n_valid.dtype != torch.int64):
+            raise ValueError("radius_pca kernel: a cloud is packed as "
+                             "f32[M, 4] with an int64 count (presort_ref)")
+    if q_tile % _BLOCK_QUERIES:
+        raise ValueError(f"q_tile must be a multiple of {_BLOCK_QUERIES} "
+                         f"for the kernel; got {q_tile}")
+    if qp.center.dtype != torch.float32:
         raise ValueError("radius_pca kernel needs float32 coordinates")
-    qm8 = qm_s.to(torch.uint8)
-    start32 = b_start.to(torch.int32)
-    end32 = b_end.to(torch.int32)
-    _check_kernel_args(q_s, qm8, ref_s, start32, end32)
-    if ref_s.shape[0] == 0:
-        ref_s = q_s.new_zeros((1, dim))
-    out = torch.empty((_n_moments(dim), n_rows), dtype=torch.float32,
-                      device=q_s.device)
-    if n_rows == 0:
-        return out  # no query, no launch
+    _check_kernel_args(qp.ref_s, qp.n_valid, rp.ref_s, rp.n_valid, qp.center)
+    # one zero fill serves every output: rows without a valid query stay
+    # zero, and the last word is the overflow counter
+    widths = (1, dim, dim * dim, dim, dim)
+    buf = torch.zeros((n * sum(widths) + 1,), dtype=torch.float32, device=dev)
+    outs, at = [], 0
+    for w in widths:
+        outs.append(buf[at:at + n * w])
+        at += n * w
+    cnt = outs[0]
+    mean, evals, normals = (outs[i].view(n, dim) for i in (1, 3, 4))
+    cov = outs[2].view(n, dim, dim)
+    overflow = buf[at:].view(torch.int32)[0]
+    stats = PcaStats(cnt, mean, cov, evals, normals, overflow)
+    if n == 0:
+        return stats  # no query, no launch
+    ref4 = rp.ref_s
+    if ref4.shape[0] == 0:
+        # never read (the count is 0), but the pointer must be valid
+        ref4 = qp.ref_s.new_zeros((1, 4))
     lib = load("radius_pca")
     fn = lib.radius_pca_launch
     if not getattr(fn, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_float, ci, ci, ci, ci,
-                       vp, vp]
+        if lib.radius_pca_block_queries() != _BLOCK_QUERIES:
+            raise RuntimeError("radius_pca kernel and wrapper disagree on "
+                               "the queries per block")
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, ci, vp, vp, vp, vp, cf, cf, ci, ci, ci, ci, ci,
+                       vp, vp, vp, vp, vp, vp, vp]
         fn.restype = ci
         fn._typed = True
-    with torch.cuda.device(q_s.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q_s.data_ptr(), qm8.data_ptr(), ref_s.data_ptr(),
-                 start32.data_ptr(), end32.data_ptr(), r2, n_rows,
-                 start32.shape[0], _KERNEL_BLOCK, dim, out.data_ptr(), stream)
+        err = fn(qp.ref_s.data_ptr(), n, qp.n_valid.data_ptr(),
+                 ref4.data_ptr(), rp.n_valid.data_ptr(), qp.center.data_ptr(),
+                 r, r2, q_tile, W, min_count, n, dim, cnt.data_ptr(),
+                 mean.data_ptr(), cov.data_ptr(), evals.data_ptr(),
+                 normals.data_ptr(), overflow.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"radius_pca kernel launch failed (code {err})")
     radius_pca.launches += 1
-    return out
-
-
-def _radius_pca_sweep(query, ref, query_mask, ref_mask, max_radius,
-                      q_tile: int = 2048, W: int = 4096,
-                      self_neighborhood: bool = False,
-                      force_plain: bool = False):
-    """Sorted-sweep radius PCA: sort both clouds by x, each query tile only
-    sees the contiguous ref window within ``[tile_min - r, tile_max + r]``
-    (same schedule as ``nn_sweep.sweep_knn``).  Returns
-    ``(cnt, mean, cov, overflow_tiles)`` -- ``overflow_tiles`` counts query
-    tiles whose true candidate span exceeded ``W`` (their stats degrade to
-    window-truncated; callers should surface it)."""
-    n, dim = query.shape
-    m = ref.shape[0]
-    dev = query.device
-    W = min(W, m)
-    max_radius = float(max_radius)
-    r = torch.tensor(max_radius, dtype=torch.float32, device=dev)
-    # the reference squares the radius in double and compares in f32
-    r2 = float(np.float32(max_radius * max_radius))
-
-    ref_x = torch.where(ref_mask, ref[:, 0], torch.full_like(ref[:, 0], BIG))
-    ref_order = torch.sort(ref_x, stable=True).indices
-    ref_s = ref[ref_order].contiguous()
-    ref_mask_s = ref_mask[ref_order]
-    ref_xs = ref_x[ref_order].contiguous()
-    pack = RefPack(ref_s, ref_mask_s, ref_xs, ref_order, ref_mask.sum(),
-                   torch.zeros((dim,), dtype=torch.float32, device=dev))
-
-    if self_neighborhood:
-        # query IS ref (surface normals over one cloud): one sort and one
-        # gather serve both sides
-        q_order = ref_order
-        q_sorted, qm_sorted, qx_sorted = ref_s, ref_mask_s, ref_xs
-    else:
-        q_x = torch.where(query_mask, query[:, 0],
-                          torch.full_like(query[:, 0], BIG))
-        q_order = torch.sort(q_x, stable=True).indices
-        q_sorted, qm_sorted, qx_sorted = \
-            query[q_order], query_mask[q_order], q_x[q_order]
-    n_pad = -(-n // q_tile) * q_tile
-    pad = n_pad - n
-    q_s = pad_rows(q_sorted, pad, BIG)
-    qm_s = pad_rows(qm_sorted, pad, False)
-    qx_s = pad_rows(qx_sorted, pad, BIG)
-
-    use_kernel = query.is_cuda and not force_plain
-    block = _kernel_block_for(q_tile) if use_kernel else q_tile
-    t_start, t_end, live, overflow, b_start, b_end = sweep_windows(
-        qx_s, qm_s, pack, r, q_tile, W, block)
-
-    if use_kernel:
-        acc_sorted = _moments_kernel(q_s.contiguous(), qm_s.contiguous(),
-                                     ref_s, b_start, b_end, r2, n_pad)
-    else:
-        acc_sorted = _moments_plain(q_s, qm_s, ref_s, t_start, t_end, live,
-                                    r2, q_tile)
-    acc_sorted = acc_sorted[:, :n]
-    # un-sort queries
-    inv = torch.empty_like(q_order)
-    inv[q_order] = torch.arange(n, device=dev)
-    acc = acc_sorted[:, inv]
-    acc = torch.where(query_mask[None, :], acc, torch.zeros_like(acc))
-    cnt, mean, cov = _unpack_stats(acc, dim)
-    return cnt, mean, cov, overflow
+    return stats
 
 
 def _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile, W,
-                force_plain):
-    n, dim = query.shape
+                min_count, force_plain) -> PcaStats:
+    n = query.shape[0]
     self_nn = query is ref and (query_mask is ref_mask)
     if query_mask is None:
         query_mask = torch.ones((n,), dtype=torch.bool, device=query.device)
@@ -220,21 +278,22 @@ def _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile, W,
     if ref_mask is None:
         ref_mask = torch.ones((ref.shape[0],), dtype=torch.bool,
                               device=ref.device)
+    W = min(W, ref.shape[0])
+    max_radius = float(max_radius)
+    r = float(np.float32(max_radius))
+    # the reference squares the radius in double and compares in f32
+    r2 = float(np.float32(max_radius * max_radius))
 
-    # center on the query cloud's masked mean (cancellation mitigation)
-    qsum = torch.where(query_mask[:, None], query,
-                       torch.zeros_like(query)).sum(0)
-    qcnt = torch.clamp(query_mask.to(torch.float32).sum(), min=1.0)
-    c = qsum / qcnt
-    qc = query - c
-    rc = qc if self_nn else ref - c
-
-    cnt, mean, cov, overflow = _radius_pca_sweep(
-        qc, rc, query_mask, ref_mask, max_radius, q_tile=q_tile, W=W,
-        self_neighborhood=self_nn, force_plain=force_plain)
-    mean = mean + torch.where(cnt[:, None] > 0, c[None, :],
-                              torch.zeros_like(c)[None, :])
-    return cnt, mean, cov, overflow
+    # both clouds centred on the query cloud's masked mean, sorted by x and
+    # packed; a cloud against itself is packed once (its centroid comes with
+    # the pack)
+    if self_nn:
+        qp = rp = presort_ref(query, query_mask)
+    else:
+        qp = presort_ref(query, query_mask)
+        rp = presort_ref(ref, ref_mask, center=qp.center)
+    run = _stats_plain if force_plain or not query.is_cuda else _stats_kernel
+    return run(qp, rp, r, r2, q_tile, W, min_count)
 
 
 def radius_pca(query, ref, query_mask: Optional[torch.Tensor] = None,
@@ -243,25 +302,60 @@ def radius_pca(query, ref, query_mask: Optional[torch.Tensor] = None,
     """Radius-neighborhood PCA statistics.
 
     Returns ``(cnt f32[N], mean f32[N, D], cov f32[N, D, D], overflow)``.
-    Both clouds are centered on the query cloud's masked mean internally
-    (see the module docstring on cancellation); ``mean`` is returned in the
-    *original* frame.  Queries with no neighbor in range (or masked out) get
-    cnt=0, mean=0, cov=0.  Passing the same tensors as ``query`` and ``ref``
-    (and the same mask) selects the self-neighborhood form, which sorts once.
+    Both clouds are centered on the query cloud's masked mean internally and
+    the moments are taken about each query (see the module docstring on
+    cancellation); ``mean`` is returned in the *original* frame.  Queries
+    with no neighbor in range (or masked out) get cnt=0, mean=0, cov=0.
+    Passing the same tensors as ``query`` and ``ref`` (and the same mask)
+    selects the self-neighborhood form, which sorts and packs once.
+    ``overflow`` counts the tiles of ``q_tile`` sorted queries whose
+    candidate span exceeded ``W`` (their statistics come from the first
+    ``W`` candidates; callers should surface it).
 
     A CUDA ``query`` launches the hand-written kernel (or raises); a CPU
     ``query`` runs the plain version.
     """
-    return _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile,
-                       W, force_plain=False)
+    s = _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile, W,
+                    0, force_plain=False)
+    return s.cnt, s.mean, s.cov, s.overflow
 
 
 def radius_pca_plain(query, ref, query_mask=None, ref_mask=None,
                      max_radius=1.0, q_tile: int = 2048, W: int = 4096):
     """:func:`radius_pca` through the plain PyTorch version of the kernel,
     on whatever device the tensors lie."""
-    return _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile,
-                       W, force_plain=True)
+    s = _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile, W,
+                    0, force_plain=True)
+    return s.cnt, s.mean, s.cov, s.overflow
 
 
-radius_pca.launches = 0  # kernel launches (the plain path adds none)
+def radius_pca_normals(query, ref, query_mask=None, ref_mask=None,
+                       max_radius=1.0, q_tile: int = 2048, W: int = 4096,
+                       min_count: int = 0):
+    """The same pass as :func:`radius_pca`, returning what a surface-normal
+    filter needs: ``(cnt f32[N], evals f32[N, D] ascending, normals
+    f32[N, D], overflow)``.  ``normals`` is the unit eigenvector of the
+    smallest eigenvalue of the neighbourhood's covariance (closed forms of
+    ``ops/eigen.py``); a neighbourhood of fewer than ``min_count`` points gets
+    a unit normal along the last axis.  Rows of masked-out queries are zero.
+
+    A CUDA ``query`` launches the hand-written kernel, once (or raises); a
+    CPU ``query`` runs the plain version.
+    """
+    s = _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile, W,
+                    min_count, force_plain=False)
+    return s.cnt, s.evals, s.normals, s.overflow
+
+
+def radius_pca_normals_plain(query, ref, query_mask=None, ref_mask=None,
+                             max_radius=1.0, q_tile: int = 2048,
+                             W: int = 4096, min_count: int = 0):
+    """:func:`radius_pca_normals` through the plain PyTorch version of the
+    kernel, on whatever device the tensors lie."""
+    s = _radius_pca(query, ref, query_mask, ref_mask, max_radius, q_tile, W,
+                    min_count, force_plain=True)
+    return s.cnt, s.evals, s.normals, s.overflow
+
+
+# kernel launches of both wrappers (the plain path adds none)
+radius_pca.launches = 0

@@ -55,6 +55,28 @@ def test_sym_eig2_against_numpy_and_jax(rng):
     assert (np.abs(np.sum(v_t.numpy() * V[:, :, 0], axis=1)) > 1 - 1e-3).all()
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("batch", [(), (7,), (3, 5)])
+def test_eig_wrappers_on_the_cpu_run_the_plain_forms(rng, dim, batch):
+    """A CPU tensor takes the closed forms in tensor operations (the kernel's
+    plain version), counts no launch and keeps its batch shape."""
+    wrapper, plain = ((te.sym_eig3_smallest, te.sym_eig3_plain) if dim == 3
+                      else (te.sym_eig2_smallest, te.sym_eig2_plain))
+    n = int(np.prod(batch)) if batch else 1
+    A = torch.from_numpy(_sym(rng, n, dim)).reshape(*batch, dim, dim)
+    before = wrapper.launches
+    ev, v = wrapper(A)
+    ev_p, v_p = plain(A)
+    assert wrapper.launches == before
+    assert ev.shape == (*batch, dim) and v.shape == (*batch, dim)
+    np.testing.assert_array_equal(ev.numpy(), ev_p.numpy())
+    np.testing.assert_array_equal(v.numpy(), v_p.numpy())
+    # ascending, and the vector is of unit length
+    assert bool((ev[..., 1:] >= ev[..., :-1]).all())
+    np.testing.assert_allclose(torch.linalg.norm(v, dim=-1).numpy(), 1.0,
+                               atol=1e-5)
+
+
 # ---------------------------------------------------------------- voxels
 
 def _interior_cloud(rng, n, dim, vox):

@@ -150,6 +150,56 @@ def test_surface_normal_radius_engine(rng, dim, extras):
 
 
 @pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("knn", [3, 10])
+def test_surface_normal_radius_engine_is_one_pass_of_the_normals_sibling(
+        rng, dim, knn):
+    """With a finite ``maxDist`` the filter's descriptors are the outputs of
+    one ``radius_pca_normals`` call (count, eigenvalues, normals with the
+    degenerate rule at min(knn, 3)), at the points' own rows of a masked
+    batch."""
+    from norlab_icp_mapper_tpu_torch.ops import pca as tpca
+    pts = _surface_cloud(rng, 700, dim)
+    pts[:2] = np.array([[40.0, 40.0, 40.0][:dim], [40.3, 40.0, 40.1][:dim]],
+                       np.float32)
+    bt = TBatch.from_numpy(pts, device="cpu")
+    bt = bt.with_mask(bt.mask & torch.from_numpy(
+        rng.random(bt.capacity) > 0.2))
+    f = tf.filter_registry.create(
+        "SurfaceNormalDataPointsFilter",
+        dict(knn=knn, maxDist=0.8, keepDensities=1, keepEigenValues=1))
+    calls = []
+    real = tpca.radius_pca_normals
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+    tpca.radius_pca_normals = spy
+    try:
+        out = f.apply(bt)
+    finally:
+        tpca.radius_pca_normals = real
+    assert len(calls) == 1 and calls[0]["min_count"] == min(knn, 3)
+    cnt, evals, normals, ov = real(bt.positions, bt.positions, bt.mask,
+                                   bt.mask, max_radius=0.8, q_tile=1024,
+                                   W=2048, min_count=min(knn, 3))
+    assert int(f.last_overflow) == int(ov) == 0
+    np.testing.assert_array_equal(out.descriptors["normals"].numpy(),
+                                  normals.numpy())
+    np.testing.assert_array_equal(out.descriptors["eigValues"].numpy(),
+                                  evals.numpy())
+    vol = 4.0 / 3.0 * np.pi * 0.8 ** 3 if dim == 3 else np.pi * 0.8 ** 2
+    np.testing.assert_allclose(out.descriptors["densities"].numpy()[:, 0],
+                               cnt.numpy() / vol, rtol=1e-6)
+    # the isolated pair has 2 neighbours < min(knn, 3): the rule's normal
+    fb = np.zeros(dim, np.float32)
+    fb[-1] = 1
+    pair = bt.mask.numpy()[:2]
+    assert (normals.numpy()[:2][pair] == fb).all()
+    # masked-out rows carry nothing
+    assert not normals.numpy()[~bt.mask.numpy()].any()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("knn,extras", [(5, False), (10, True)])
 def test_surface_normal_knn_engine(rng, dim, knn, extras):
     """``maxDist = inf``: PCA over the k nearest neighbours (the cloud

@@ -16,7 +16,7 @@ import norlab_icp_mapper_tpu_torch as nt
 from norlab_icp_mapper_tpu_torch import (cell_manager as tcm, convert,
                                          registry as treg)
 from norlab_icp_mapper_tpu_torch.io import vtk as tvtk
-from norlab_icp_mapper_tpu_torch.ops import _build, nn_sweep, pca
+from norlab_icp_mapper_tpu_torch.ops import _build, eigen, nn_sweep, pca
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "norlab_icp_mapper_tpu_torch"
@@ -64,6 +64,7 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.KERNEL_SOURCES:
         assert (PKG / "csrc" / f"{name}.cu").is_file()
     assert (PKG / "csrc" / "sweep_common.cuh").is_file()
+    assert (PKG / "csrc" / "sym_eig.cuh").is_file()
     ignore = (ROOT / ".gitignore").read_text().splitlines()
     assert "norlab_icp_mapper_tpu_torch/build/" in ignore
     assert _build.build_dir() == PKG / "build"
@@ -210,8 +211,23 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take():
         nn_sweep._search_kernel(q, m, r4, z, z, 1.0, 1, 128, 128)
     with pytest.raises(ValueError, match="1 <= k <= 6"):
         nn_sweep._search_kernel(q, m, r4, z, z, 1.0, 7, 128, 128)
+    pack = nn_sweep.presort_ref(q, m)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pca._stats_kernel(pack, pack, 1.0, 1.0, 1024, 128, 0)
     with pytest.raises(ValueError, match="D in"):
-        pca._moments_kernel(torch.zeros(128, 4), m, q, z, z, 1.0, 128)
+        pca._stats_kernel(pack._replace(center=torch.zeros(4)), pack, 1.0,
+                          1.0, 1024, 128, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        pca._stats_kernel(pack, pack, 1.0, 1.0, 100, 128, 0)
+    with pytest.raises(ValueError, match=r"f32\[M, 4\]"):
+        pca._stats_kernel(pack._replace(ref_s=q), pack, 1.0, 1.0, 1024, 128,
+                          0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eigen._eig_kernel(torch.zeros(5, 3, 3), 3)
+    with pytest.raises(ValueError, match="float32"):
+        eigen._eig_kernel(torch.zeros(5, 3, 3, dtype=torch.float64), 3)
+    with pytest.raises(ValueError, match=r"\[..., 2, 2\]"):
+        eigen._eig_kernel(torch.zeros(5, 3, 3), 2)
     with pytest.raises(ValueError, match="float32"):
         nn_sweep._search_kernel(q.double(), m, r4, z, z, 1.0, 1, 128, 128)
     with pytest.raises(ValueError, match=r"f32\[M, 4\]"):
