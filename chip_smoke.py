@@ -528,7 +528,7 @@ def hold_normals(name, ev_k, n_k, ev_p, n_p, rows, r2):
             "min_abs_dot": min_dot, "sign_flips": flips}
 
 
-def cov_oracle_errors(pts, qp, stats_k, stats_p, r2, q_tile, W, rng,
+def cov_oracle_errors(pts, qp, stats_k, stats_p, r, r2, q_tile, W, rng,
                       sample=2048):
     """Covariances of kernel and plain version against float64 on a sample
     of valid queries: the neighbour set is the f32 gate's on the tile's
@@ -541,8 +541,7 @@ def cov_oracle_errors(pts, qp, stats_k, stats_p, r2, q_tile, W, rng,
     n_q = int(qp.n_valid)
     pick = torch.from_numpy(np.sort(rng.choice(n_q, min(sample, n_q),
                                                replace=False))).to(pts.device)
-    start, end, _, _ = P.block_windows_plain(qp, qp, float(np.sqrt(r2)),
-                                             q_tile, W, q_tile)
+    start, end, _, _ = P.block_windows_plain(qp, qp, r, q_tile, W, q_tile)
     t = pick // q_tile
     s0, e0 = start[t], end[t]  # a block of q_tile queries is a tile
     width = int((e0 - s0).max())
@@ -632,8 +631,9 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool, rng,
           "not carry the unit normal along the last axis")
     rec_n = hold_normals(name, k.evals, k.normals, p.evals, p.normals,
                          mask & ~few, r2)
+    r = float(np.float32(radius))
     qp = S.presort_ref(pts, mask)
-    rec_o = cov_oracle_errors(pts, qp, k, p, r2, q_tile, min(W, n), rng)
+    rec_o = cov_oracle_errors(pts, qp, k, p, r, r2, q_tile, min(W, n), rng)
     if oracle_tol is not None:
         check(rec_o["max_abs_err_cov_kernel_vs_f64"] <= oracle_tol,
               f"{name}: kernel covariance is "
@@ -641,7 +641,6 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool, rng,
               f"(> {oracle_tol})")
 
     # the launch alone (packs built), the whole wrapper, the plain version
-    r = float(np.float32(radius))
     Wc = min(W, n)
 
     def launch():
@@ -708,6 +707,49 @@ def pca_case(name, pts, mask, radius, q_tile, W, on_path: bool, rng,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
     }
+
+
+def pca_two_clouds_case(name, query, qmask, ref, rmask, radius, q_tile, W,
+                        knn=10):
+    """The kernel's two-cloud form (a sorted query pack of its own) against
+    the plain version: counts and overflow exactly, the rest as in
+    ``pca_case``.  Not timed: the main path only has the self form."""
+    from norlab_icp_mapper_tpu_torch.ops import pca as P
+    min_count = min(knn, 3)
+    before = P.radius_pca.launches
+    args = (query, ref, qmask, rmask, radius, q_tile, W, min_count)
+    k = P._radius_pca(*args, force_plain=False)
+    p = P._radius_pca(*args, force_plain=True)
+    torch.cuda.synchronize()
+    P.radius_pca.launches = before
+    check(int(k.overflow) == int(p.overflow),
+          f"{name}: overflow {int(k.overflow)} differs from the plain "
+          f"version's {int(p.overflow)}")
+    count_flips = int((k.cnt != p.cnt).sum())
+    check(count_flips == 0, f"{name}: {count_flips} neighbour counts differ "
+                            "from the plain version")
+    r2 = float(np.float32(radius * radius))
+    eps = float(np.finfo(np.float32).eps)
+    mean_tol = 1e-6 * radius + 4 * eps * torch.linalg.norm(query, dim=1)
+    mean_excess = float(((k.mean - p.mean).abs().amax(1) - mean_tol).max())
+    check(mean_excess <= 0, f"{name}: a mean differs from the plain "
+                            f"version's by {mean_excess} above its tolerance")
+    cov_err = float((k.cov - p.cov).abs().max())
+    check(cov_err <= 1e-5 * r2, f"{name}: covariances differ by {cov_err}")
+    for x in (k.cnt, k.mean, k.cov, k.evals, k.normals):
+        check(not bool(x[~qmask].any()),
+              f"{name}: a row of an invalid query is not zero")
+    rec = hold_normals(name, k.evals, k.normals, p.evals, p.normals,
+                       qmask & (k.cnt >= min_count), r2)
+    rec.update({"phase": "kernel_case", "case": name, "kernel": "radius_pca",
+                "D": query.shape[1], "N": query.shape[0], "M": ref.shape[0],
+                "valid_queries": int(qmask.sum()),
+                "valid_refs": int(rmask.sum()), "radius": radius,
+                "q_tile": q_tile, "W": W, "overflow": int(k.overflow),
+                "count_flips": count_flips, "max_abs_err_cov": cov_err,
+                "queries_without_neighbour": int((qmask & (k.cnt == 0)).sum()),
+                "mean_neighbours": float(k.cnt.sum() / qmask.sum())})
+    emit(rec)
 
 
 def library_eigh_ms(cov, chunk=16384):
@@ -1237,6 +1279,9 @@ def phase_kernels(scans, poses, seed):
                             1.0, 1024, 2048, on_path=True, rng=rng,
                             oracle_tol=1e-5))
     emit(phase_split(mp, 10, 1.0))
+    # the two-cloud form: the scan's points against the map
+    pca_two_clouds_case("scan_against_map", scan_m.positions, smask,
+                        mp.positions, mp.mask, 1.0, 1024, 2048)
     p2 = torch.from_numpy(
         rng.uniform(-20, 20, size=(4096, 2)).astype(np.float32)).to(dev)
     m2 = torch.from_numpy(rng.random(4096) > 0.1).to(dev)
@@ -1297,6 +1342,8 @@ def exact_cases(rng, dev):
     far = mp.positions + torch.tensor([500.0, -500.0, 500.0], device=dev)
     pca_case("exact_surface_normals_offset_500m", far, mp.mask, 1.0, 1024,
              2048, on_path=False, rng=rng, exact=True)
+    pca_two_clouds_case("sparse_scan_against_map", sc.positions, sc.mask,
+                        mp.positions, mp.mask, 1.0, 1024, 2048)
 
 
 def reset_counts():
