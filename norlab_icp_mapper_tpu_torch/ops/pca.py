@@ -75,7 +75,7 @@ from .nn_sweep import (BIG, RefPack, _KERNEL_BLOCK, _check_kernel_args,
                        _pair_d2, pad_rows, presort_ref, sweep_windows)
 
 __all__ = ["radius_pca", "radius_pca_plain", "radius_pca_normals",
-           "radius_pca_normals_plain", "block_windows_plain"]
+           "radius_pca_normals_plain"]
 
 _LANES_PER_QUERY = 4
 _BLOCK_QUERIES = _KERNEL_BLOCK // _LANES_PER_QUERY  # queries per block
@@ -173,33 +173,6 @@ def _stats_plain(qp: RefPack, rp: RefPack, r: float, r2: float, q_tile: int,
     for o, x in zip(out, (cnt, mean, cov, evals, normals)):
         o[rows] = x[:n_q]
     return PcaStats(*out, overflow)
-
-
-def block_windows_plain(qp: RefPack, rp: RefPack, r: float, q_tile: int,
-                        W: int, block: int = _BLOCK_QUERIES):
-    """The windows as a block of the kernel finds them, in plain tensor
-    operations: per block of ``block`` sorted valid queries its first and
-    last packed x, the bounds of its tile and of the block by
-    ``searchsorted`` over the valid references' x, ``(start, end, queries,
-    overflow)``.  Reads the two counts to the host; for the tests and for
-    the pair count of the on-card bound."""
-    n_q, m = int(qp.n_valid), int(rp.n_valid)
-    dev = qp.ref_s.device
-    W = min(W, rp.ref_s.shape[0])
-    first = torch.arange(0, n_q, block, device=dev)
-    last = torch.clamp(first + block, max=n_q) - 1
-    t_first = (first // q_tile) * q_tile
-    t_last = torch.clamp(t_first + q_tile, max=n_q) - 1
-    qx, rx = qp.ref_s[:n_q, 0], rp.ref_s[:m, 0].contiguous()
-    rt = torch.tensor(r, dtype=torch.float32, device=dev)
-    lo = torch.searchsorted(rx, qx[t_first] - rt)
-    hi = torch.searchsorted(rx, qx[t_last] + rt)
-    overflow = ((hi - lo > W) & (first % q_tile == 0)).sum()
-    t_end = torch.minimum(hi, lo + W)
-    start = torch.maximum(torch.searchsorted(rx, qx[first] - rt), lo)
-    end = torch.minimum(torch.searchsorted(rx, qx[last] + rt, right=True),
-                        t_end)
-    return start, torch.maximum(end, start), last - first + 1, overflow
 
 
 def _stats_kernel(qp: RefPack, rp: RefPack, r: float, r2: float, q_tile: int,

@@ -366,6 +366,31 @@ def test_normals_sibling_against_the_reference_filter(dim):
     assert (cos[gap] > 1 - 1e-4).all()
 
 
+def _block_windows(qp, rp, r, q_tile, W, block):
+    """The windows as a block of the kernel finds them, in plain tensor
+    operations: per block of ``block`` sorted valid queries its first and
+    last packed x, the bounds of its tile and of the block by
+    ``searchsorted`` over the valid references' x, ``(start, end, queries,
+    overflow)``."""
+    n_q, m = int(qp.n_valid), int(rp.n_valid)
+    dev = qp.ref_s.device
+    W = min(W, rp.ref_s.shape[0])
+    first = torch.arange(0, n_q, block, device=dev)
+    last = torch.clamp(first + block, max=n_q) - 1
+    t_first = (first // q_tile) * q_tile
+    t_last = torch.clamp(t_first + q_tile, max=n_q) - 1
+    qx, rx = qp.ref_s[:n_q, 0], rp.ref_s[:m, 0].contiguous()
+    rt = torch.tensor(r, dtype=torch.float32, device=dev)
+    lo = torch.searchsorted(rx, qx[t_first] - rt)
+    hi = torch.searchsorted(rx, qx[t_last] + rt)
+    overflow = ((hi - lo > W) & (first % q_tile == 0)).sum()
+    t_end = torch.minimum(hi, lo + W)
+    start = torch.maximum(torch.searchsorted(rx, qx[first] - rt), lo)
+    end = torch.minimum(torch.searchsorted(rx, qx[last] + rt, right=True),
+                        t_end)
+    return start, torch.maximum(end, start), last - first + 1, overflow
+
+
 def test_block_windows_match_the_wrapper_windows():
     """The windows as a kernel block finds them (first and last packed x of
     the block and of its tile, bounds over the valid references) equal the
@@ -377,8 +402,8 @@ def test_block_windows_match_the_wrapper_windows():
     pack = tsweep.presort_ref(torch.from_numpy(pts), torch.from_numpy(mask))
     for q_tile, W, block in ((256, 300, 128), (512, 1000, 256),
                              (256, 150, 256)):
-        start, end, nq, ov = tpca.block_windows_plain(pack, pack, 0.4, q_tile,
-                                                      W, block)
+        start, end, nq, ov = _block_windows(pack, pack, 0.4, q_tile, W,
+                                            block)
         pad = -(-1000 // q_tile) * q_tile - 1000
         qx = tsweep.pad_rows(pack.ref_xs, pad, tsweep.BIG)
         qm = tsweep.pad_rows(pack.ref_mask_s, pad, False)
