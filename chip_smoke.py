@@ -14,11 +14,23 @@ standard output; the last line is the verdict
 Phases:
   card      the card's name and power limit, torch and CUDA versions
   build     compiles the kernels (all sources in parallel), prints the seconds
-  kernels   each kernel against its plain version at the path's shapes
-  identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence
-  p2plane   a Mapper on examples/config_p2plane.yaml, pose priors perturbed
+  kernels   each kernel against its plain version at the path's shapes, and
+            the WHILE node that runs the ICP loop against a Python loop
+  identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence,
+            drained after every scan; the steady-state scans' filters and
+            step run under ``torch.cuda.set_sync_debug_mode("error")``
+            (``sync_check``); then the same sequence free-running (no drain
+            between scans): ``free_running_scans_per_s``
+  p2plane   a Mapper on examples/config_p2plane.yaml, pose priors perturbed,
+            as identity; then the last scan's solve replayed from its CUDA
+            graph against the same body under the Python loop
+            (``p2plane_graph_vs_loop``: T bit for bit)
+  online    the p2plane config with ``is_online=True``, free-running, with
+            ``get_pose()`` timed after every scan; trajectory and map held
+            against the offline free-running run
   default   a Mapper without a config (``Mapper(None)``: matcher without
-            maxDist, k-NN normals, PointDistanceMapperModule), same priors
+            maxDist, k-NN normals, PointDistanceMapperModule), same priors,
+            with its own ``default_graph_vs_loop``
   p2point   the default config with the point-to-point minimizer, median and
             surface-normal outlier filters and a step filter, 6 scans; then
             4 scans with a bound checker added (the stepwise path)
@@ -56,6 +68,7 @@ the tensor cores and 3.35 TB/s of device memory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1260,7 +1273,65 @@ def phase_kernels(scans, poses, seed):
     eig_case("eigensolve_2d", cov2, m2 & (cnt2 >= 3), 1.0, on_path=False)
     exact_cases(rng, dev)
     entries += knn_cases(scans, poses, rng, dev)
+    entries.append(while_node_case())
     return entries
+
+
+def while_node_case():
+    """The WHILE node of ``csrc/graph_loop.cu`` (its condition kernel and
+    the node) around a body of one increment, 1,000 iterations, against the
+    same body under a Python loop that reads the condition before each
+    iteration (what the CPU path does).  Its tensors are the main path's:
+    a 0-d int32 counter and a 0-d bool stop flag."""
+    from norlab_icp_mapper_tpu_torch.ops import graph_loop
+    dev = torch.device("cuda")
+    n_iter = 1000
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    body_stream, pool = torch.cuda.Stream(), torch.cuda.MemPool()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            it.zero_()
+            with graph_loop.while_node(it, stop, n_iter, body_stream, pool):
+                it.add_(1)
+        finally:
+            graph.capture_end()
+
+    def plain():
+        it.zero_()
+        while not bool(stop) and int(it) < n_iter:
+            it.add_(1)
+
+    # graph.replay(), not graph_loop.replay(): these launches do not count
+    graph.replay()
+    got = int(it)
+    plain()
+    want = int(it)
+    ms = time_cuda(graph.replay)
+    plain_ms = time_cuda(plain, reps=3, warmup=1)
+    # per iteration the condition kernel reads the counter and the flag, the
+    # body reads and writes the counter; no arithmetic to speak of
+    bytes_moved = n_iter * (4 + 1 + 4 + 4)
+    bound_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": "while_node_1000",
+          "kernel": "graph_while", "iterations_node": got,
+          "iterations_plain": want, "kernel_ms": ms,
+          "us_per_iteration": ms * 1e3 / n_iter, "plain_ms": plain_ms,
+          "bound_bytes_ms": bound_ms,
+          "bound_arithmetic": f"{bytes_moved} bytes / 3.35 TB/s"})
+    check(got == want == n_iter,
+          f"while node: {got} iterations, the plain loop {want}")
+    graph.reset()
+    return {
+        "name": "graph_while", "route": "cuda",
+        "source": "norlab_icp_mapper_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "icp/engine.py:631", "launches": 0,
+        "max_abs_err": float(abs(got - want)), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": None,
+    }
 
 
 def exact_cases(rng, dev):
@@ -1311,6 +1382,7 @@ def exact_cases(rng, dev):
 
 
 def reset_counts():
+    from norlab_icp_mapper_tpu_torch.ops import graph_loop
     from norlab_icp_mapper_tpu_torch.ops.nn import knn
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
@@ -1321,9 +1393,11 @@ def reset_counts():
     sym_eig3_smallest.launches = 0
     knn.launches = 0
     knn.launches_by_shape = {}
+    graph_loop.replay.launches = 0
 
 
 def read_counts():
+    from norlab_icp_mapper_tpu_torch.ops import graph_loop
     from norlab_icp_mapper_tpu_torch.ops.nn import knn
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
@@ -1336,26 +1410,64 @@ def read_counts():
     out["sym_eig[D=3]"] = sym_eig3_smallest.launches
     out["sweep_knn"] = sweep_knn.launches
     out["knn_brute"] = knn.launches
+    out["graph_while"] = graph_loop.replay.launches  # solve graph replays
     return out
 
 
-def drive(config_name, scans, priors, phase):
-    """Feed the sequence through a fresh Mapper; returns per-scan records."""
+@contextlib.contextmanager
+def no_sync(mapper, tally, on: bool):
+    """Run the block under ``torch.cuda.set_sync_debug_mode("error")``: any
+    call that makes the host wait for the card raises.  A scan that applies
+    deferred rolling-window events, or replays a merge that filled the map
+    buffer, waits by design (so does the JAX package's, ``mapper.py:363-369``):
+    it runs under ``"warn"`` and its synchronising calls are counted in
+    ``tally``, as are the mapper's own counted waits (``Mapper.waits``)."""
+    if not on:
+        yield
+        return
+    import warnings
+    window = bool(mapper._pending_window) \
+        or mapper._overflow_remerge is not None
+    before = dict(mapper.waits)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn" if window else "error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    tally["scans_checked"] += 1
+    if window:
+        tally["waiting_scans"] += 1
+        tally["waiting_scan_syncs"] += sum(
+            "synchroniz" in str(w.message) for w in caught)
+    for k, v in mapper.waits.items():
+        tally[f"waits_{k}"] += v - before[k]
+
+
+def drive(config_name, scans, priors, phase, strict=False, online=False):
+    """Feed the sequence through a fresh Mapper, draining after each scan
+    (step-locked); returns the mapper and the per-scan records.  ``strict``
+    runs the steady-state scans' filters and step under ``no_sync``."""
+    import collections
     import norlab_icp_mapper_tpu_torch as nt
     mapper = nt.Mapper(os.path.join(HERE, "examples", config_name),
-                       is_3d=True, device="cuda", seed=0)
+                       is_3d=True, device="cuda", seed=0, is_online=online)
     mapper.timer.enabled = True
     reset_counts()
     per_scan, counts, valid, iters = [], [], [], []
+    syncs = collections.Counter()
     for i, (scan, prior) in enumerate(zip(scans, priors)):
         mapper.drain()
         t0 = time.time()
         batch = nt.PointBatch.from_numpy(scan, capacity=SCAN_CAPACITY,
                                          device="cuda")
-        filtered = mapper.apply_input_filters(batch)
-        mapper.process_input(filtered, prior, int(i * 1e8))
+        with no_sync(mapper, syncs, strict and i >= 2):
+            filtered = mapper.apply_input_filters(batch)
+            mapper.process_input(filtered, prior, int(i * 1e8))
         mapper.drain()
         per_scan.append((time.time() - t0) * 1e3)
+        last = (filtered, prior)
         counts.append(mapper.map.known_count())
         valid.append(int(filtered.count()))
         iters.append(int(mapper.last_iterations))
@@ -1385,17 +1497,118 @@ def drive(config_name, scans, priors, phase):
         "phase_ms_first_two_scans": {k: round(v, 2)
                                      for k, v in warmup.items()},
         "last_scan_overflow_tiles": overflow,
+        "graph_captures": mapper.icp.graph_captures,
+        "mapper_waits": dict(mapper.waits),
     }
+    if strict:
+        rec["sync_check"] = dict(syncs)
+    mapper.last_scan = last
     return mapper, rec
 
 
-# Final map sizes and iterations per scan of the bundled configs on this
-# sequence (seed 0) as measured with raw-moment normals; per-query centred
-# normals may move them a little (DynamicPoints and the point-to-plane
-# minimizer read normals), never by more than these gates.
-IDENTITY_MAP_POINTS = 87_386
-P2PLANE_MAP_POINTS = 83_399
-P2PLANE_ITERATIONS = 20.4
+# Final map sizes and iterations per scan on this sequence (seed 0) before
+# the solve became a CUDA graph and the loop pipelined (the eager loop);
+# the gates hold the new loop to them.
+IDENTITY_MAP_POINTS = 87_342
+P2PLANE_MAP_POINTS = 83_552
+P2PLANE_ITERATIONS = 20.24
+DEFAULT_MAP_POINTS = 101_404
+
+
+def hold_graph_solve(mapper, phase):
+    """The solve of the phase's last scan, replayed from the graph the
+    phase captured, against the same body under the Python loop that reads
+    ``done`` before each iteration, on the same card tensors: T bit for bit
+    and the same iterations (the masked iterations after the stop change
+    nothing)."""
+    from norlab_icp_mapper_tpu_torch import se3
+    from norlab_icp_mapper_tpu_torch.icp import engine
+    icp = mapper.icp
+    filtered, prior = mapper.last_scan
+    reading = se3.apply(torch.as_tensor(prior, device="cuda"), filtered)
+    if len(icp.reading_filters):
+        reading = icp.reading_filters._apply_impl(reading, mapper.draws)
+    ref = icp._ref
+    args = (reading.positions, reading.mask, ref.positions,
+            icp.check_reference(ref), ref.mask, icp._ref_pack)
+    captures = icp.graph_captures
+    g = icp.solve(*args)
+    loop = engine._icp_solve(*args, **icp.solve_config())
+    it_g, it_l = int(g.iterations), int(loop[2])
+    same = bool(torch.equal(g.correction, loop[0]))
+    emit({"phase": f"{phase}_graph_vs_loop", "iterations_graph": it_g,
+          "iterations_loop": it_l, "T_bit_identical": same,
+          "T_max_abs_diff": float((g.correction - loop[0]).abs().max()),
+          "overlap_bit_identical": bool(torch.equal(g.overlap, loop[1])),
+          "new_captures": icp.graph_captures - captures})
+    check(icp.graph_captures == captures,
+          f"{phase}: the check captured a new graph instead of replaying "
+          "the phase's")
+    check(same and it_g == it_l,
+          f"{phase}: the graph solve differs from its body's Python loop "
+          f"({it_g} against {it_l} iterations, T equal: {same})")
+
+
+def free_running(config, scans, priors, online=False):
+    """The sequence through a fresh Mapper without a drain between scans
+    (one after the last): what the pipelined loop is for.  Returns the
+    mapper and ``free_running_scans_per_s`` over the steady-state scans;
+    ``online`` also times ``get_pose()`` after each of them (it waits for
+    that scan's solve, not for its merge)."""
+    import norlab_icp_mapper_tpu_torch as nt
+    path = None if config is None else (
+        config if isinstance(config, dict)
+        else os.path.join(HERE, "examples", config))
+    mapper = nt.Mapper(path, is_3d=True, device="cuda", seed=0,
+                       is_online=online)
+    batches = [nt.PointBatch.from_numpy(s, capacity=SCAN_CAPACITY,
+                                        device="cuda") for s in scans]
+    waits = []
+
+    def feed(i):
+        filtered = mapper.apply_input_filters(batches[i])
+        mapper.process_input(filtered, priors[i], int(i * 1e8))
+
+    for i in range(2):
+        feed(i)
+    mapper.drain()
+    t0 = time.time()
+    for i in range(2, len(scans)):
+        feed(i)
+        if online:
+            t1 = time.time()
+            mapper.get_pose()
+            waits.append((time.time() - t1) * 1e3)
+    mapper.drain()
+    rec = {"free_running_scans_per_s": (len(scans) - 2) / (time.time() - t0),
+           "free_running_final_map_count": mapper.map.known_count(),
+           "free_running_mapper_waits": dict(mapper.waits)}
+    if online:
+        rec["get_pose_wait_ms"] = [round(w, 3) for w in waits]
+    return mapper, rec
+
+
+def check_graph_launches(phase, launches, n_scans):
+    """Every scan after the bootstrap one solved by one replay of a solve
+    graph (its WHILE node ran the ICP loop)."""
+    check(launches["graph_while"] == n_scans - 1,
+          f"{phase}: {launches['graph_while']} solve graph replays for "
+          f"{n_scans - 1} registered scans")
+
+
+def check_sync(rec):
+    """The steady-state scans' filters and step made no synchronising call
+    (``no_sync`` raised otherwise) and waited only where the loop counts a
+    wait: at ``PIPELINE_DEPTH`` and at scans that apply window events."""
+    sc = rec["sync_check"]
+    phase = rec["phase"]
+    check(sc.get("scans_checked", 0) == rec["scans"] - 2,
+          f"{phase}: {sc} (not every steady-state scan was checked)")
+    check(sc.get("waits_capacity", 0) == 0
+          and sc.get("waits_shrink", 0) == 0
+          and sc.get("waits_merge_decision", 0) == 0,
+          f"{phase}: the loop waited for the card outside the allowed "
+          f"waits: {sc}")
 
 
 def check_map_size(phase, n, expected):
@@ -1453,7 +1666,11 @@ def drive_default(scans, priors, config=None, phase="default"):
     k1_by = {"point_distance": 0, "matcher": 0}
     count_k1_launches(mapper.map.modules[0], "update_map", k1_by,
                       "point_distance")
+    # the matcher's launches: counted in the solve by the Python loop, and
+    # at harvest for a solve graph's replay (its wrappers counted at
+    # capture, and the iterations are known once the mirrors land)
     count_k1_launches(mapper.icp, "solve", k1_by, "matcher")
+    count_k1_launches(mapper, "_harvest_entry", k1_by, "matcher")
     per_scan, counts, caps, valid, iters, merged = [], [], [], [], [], []
     last_merge = None
     warmup = {}
@@ -1478,6 +1695,7 @@ def drive_default(scans, priors, config=None, phase="default"):
         iters.append(int(mapper.last_iterations))
         if i == 1:
             warmup = mapper.timer.totals()
+    mapper.last_scan = (filtered, prior)
     launches = read_counts()
     launches["knn_brute[D=3,k=10,normals]"] = \
         launches.get("knn_brute[D=3,k=10]", 0)
@@ -1497,6 +1715,8 @@ def drive_default(scans, priors, config=None, phase="default"):
         "phase_ms_steady_total": {k: round(v, 2) for k, v in phases.items()},
         "phase_ms_first_two_scans": {k: round(v, 2)
                                      for k, v in warmup.items()},
+        "graph_captures": mapper.icp.graph_captures,
+        "mapper_waits": dict(mapper.waits),
     }
     return mapper, rec, last_merge
 
@@ -1667,9 +1887,14 @@ def main() -> int:
     entries = phase_kernels(scans, poses, args.seed)
 
     # ---- identity: trusted odometry
-    mapper, rec = drive("config.yaml", scans, poses, "identity")
+    mapper, rec = drive("config.yaml", scans, poses, "identity", strict=True)
+    _, free = free_running("config.yaml", scans, poses)
+    rec.update(free)
     emit(rec)
     check_map(mapper, rec, len(scans))
+    check_sync(rec)
+    check_map_size("identity_free_running",
+                   rec["free_running_final_map_count"], IDENTITY_MAP_POINTS)
     id_launch = rec["launches"]
     check(id_launch.get("sweep_knn[D=3,k=1]", 0) > 0
           and id_launch.get("sweep_knn[D=2,k=1]", 0) > 0
@@ -1678,12 +1903,19 @@ def main() -> int:
     check(id_launch["radius_pca[D=3]"] == len(scans),
           "identity: the SurfaceNormal filter is not one launch per scan: "
           f"{id_launch}")
+    check_graph_launches("identity", id_launch, len(scans))
     check_map_size("identity", rec["final_map_count"], IDENTITY_MAP_POINTS)
 
     # ---- p2plane: perturbed priors, the first pose anchors the map
     rng = np.random.default_rng(args.seed + 1)
     priors = [poses[0]] + [perturb(p, rng) for p in poses[1:]]
-    mapper, rec = drive("config_p2plane.yaml", scans, priors, "p2plane")
+    mapper, rec = drive("config_p2plane.yaml", scans, priors, "p2plane",
+                        strict=True)
+    p2_mapper = mapper
+    free_mapper, free = free_running("config_p2plane.yaml", scans, priors)
+    rec.update(free)
+    rec["free_running_recovered_ate_m"] = ate(
+        free_mapper.get_trajectory().poses[1:], poses[1:])
     est = mapper.get_trajectory().poses
     prior_ate = ate(priors[1:], poses[1:])
     rec_ate = ate(est[1:], poses[1:])
@@ -1710,11 +1942,56 @@ def main() -> int:
           and p2_launch.get("sweep_knn[D=2,k=1]", 0) > 0
           and p2_launch["radius_pca[D=3]"] > 0,
           f"p2plane: a kernel of the path was never launched: {p2_launch}")
+    check_sync(rec)
+    check_graph_launches("p2plane", p2_launch, len(scans))
+    check(rec["free_running_recovered_ate_m"] <= 0.004,
+          "p2plane: the free-running run's ATE is "
+          f"{rec['free_running_recovered_ate_m']} m")
+    check_map_size("p2plane_free_running",
+                   rec["free_running_final_map_count"], P2PLANE_MAP_POINTS)
+    hold_graph_solve(p2_mapper, "p2plane")
+
+    # ---- online: the point-to-plane config with is_online=True, without a
+    # drain between scans, against the offline free-running run
+    online, orec = free_running("config_p2plane.yaml", scans, priors,
+                                online=True)
+    on_est = online.get_trajectory().poses
+    off_est = free_mapper.get_trajectory().poses
+    dt = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+             for a, b in zip(on_est, off_est))
+    waits = orec["get_pose_wait_ms"]
+    orec.update({
+        "phase": "online", "config": "examples/config_p2plane.yaml",
+        "recovered_ate_m": ate(on_est[1:], poses[1:]),
+        "max_pose_translation_diff_to_offline_m": dt,
+        "final_map_count": orec["free_running_final_map_count"],
+        "offline_final_map_count": free["free_running_final_map_count"],
+        "get_pose_wait_ms_median": statistics.median(waits),
+        "get_pose_wait_ms_max": max(waits),
+        "graph_captures": online.icp.graph_captures})
+    emit(orec)
+    # a scan harvested earlier or later can change the buffer's capacity,
+    # and with it the octree's random draws (one per slot): representatives
+    # and, through the reading, poses may move by about the ICP's accuracy
+    check(len(on_est) == len(scans), "online: trajectory length")
+    check(dt <= 0.005, f"online: a pose differs from the offline run's by "
+          f"{dt} m (> 5 mm)")
+    check(orec["recovered_ate_m"] <= 0.004,
+          f"online: recovered ATE {orec['recovered_ate_m']} m > 0.004 m")
+    check(abs(orec["final_map_count"] - orec["offline_final_map_count"])
+          <= 0.01 * orec["offline_final_map_count"],
+          "online: the map differs from the offline run's by more than 1 %")
+    online.shutdown()
 
     # ---- default: no config at all, the same perturbed priors
     mapper, rec, last_merge = drive_default(scans, priors)
     df_launch = rec["launches"]
+    _, free = free_running(None, scans, priors)
+    rec.update(free)
     finish_no_radius_phase(mapper, rec, priors, poses)
+    check_map_size("default", rec["final_map_count"], DEFAULT_MAP_POINTS)
+    check_graph_launches("default", df_launch, len(scans))
+    hold_graph_solve(mapper, "default")
     check(rec["merges"] >= 3, f"default: {rec['merges']} merges")
     check(rec["map_capacity"] > MAP_CAPACITY,
           f"default: the map buffer stayed at {rec['map_capacity']}")

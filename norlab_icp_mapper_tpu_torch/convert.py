@@ -82,6 +82,7 @@ def mapper_state_from_numpy(mapper, map_arrays, ref_arrays=None, pose=None,
     six grid bounds, or None if the first pose update is still pending.
     ``cells``: the saved (evicted) cells, id -> host dict."""
     dev = mapper.device
+    mapper.drain()  # nothing of the port's own loop stays in flight
     local = point_batch_from_numpy(*map_arrays, device=dev)
     mapper.map.set_local(local, None, mapper.draws)
     if ref_arrays is not None:
@@ -99,7 +100,9 @@ def mapper_state_from_numpy(mapper, map_arrays, ref_arrays=None, pose=None,
     mapper.last_time_map_was_updated = (
         -np.inf if last_time_ns is None or not np.isfinite(last_time_ns)
         else int(last_time_ns))
-    mapper._meta = None
+    mapper._fused_state = None
+    mapper._fused_base_count = None
+    mapper._win_corr = None
     mapper._epoch_ns = None
     if window is None:
         mapper.map.first_pose_update = True

@@ -24,7 +24,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["DrawSource", "resolve_device", "SITE_RANDOM_SAMPLING",
+__all__ = ["DrawSource", "resolve_device", "upload", "SITE_RANDOM_SAMPLING",
            "SITE_OCTREE_PRIO"]
 
 SITE_RANDOM_SAMPLING = "random_sampling"
@@ -42,6 +42,18 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "on the CPU")
     return dev
+
+
+def upload(x, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` (an array, a tensor or anything ``torch.as_tensor`` takes) as a
+    new tensor on ``device``.  A host value goes to a card through pinned
+    memory and a non-blocking copy: a copy from pageable memory would make
+    the host wait for the card's stream."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if device.type == "cuda" and not t.is_cuda:
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
 
 
 class DrawSource:
@@ -68,18 +80,19 @@ class DrawSource:
             raise ValueError(
                 f"draw_source('{site}', {n}) returned shape "
                 f"{tuple(out.shape)}, expected ({n},)")
-        return out.to(device=self.device, dtype=dtype)
+        return upload(out, self.device, dtype)
 
     def uniform(self, site: str, n: int) -> torch.Tensor:
         """``n`` float32 uniforms in ``[0, 1)`` on the source's device."""
         if self.source is not None:
             return self._from_source(site, n, torch.float32)
-        return torch.rand(n, generator=self.generator,
-                          dtype=torch.float32).to(self.device)
+        return upload(torch.rand(n, generator=self.generator,
+                                 dtype=torch.float32), self.device)
 
     def prio15(self, site: str, n: int) -> torch.Tensor:
         """``n`` int64 priorities in ``[0, 2**15)`` on the source's device."""
         if self.source is not None:
             return self._from_source(site, n, torch.int64)
-        return torch.randint(0, 1 << 15, (n,), generator=self.generator,
-                             dtype=torch.int64).to(self.device)
+        return upload(torch.randint(0, 1 << 15, (n,), generator=self.generator,
+                                    dtype=torch.int64), self.device,
+                      torch.int64)

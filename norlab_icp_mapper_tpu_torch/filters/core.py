@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..draws import DrawSource, SITE_RANDOM_SAMPLING
+from ..draws import DrawSource, SITE_RANDOM_SAMPLING, upload
 from ..points import PointBatch
 from ..registry import Param, ParametrizedPlugin, Registry
 from ..ops.eigen import sym_eig3_smallest, sym_eig2_smallest
@@ -85,10 +85,10 @@ class BoundingBoxFilter(DataPointsFilter):
     def apply(self, batch, draws=None):
         p = self.params
         pos = batch.positions
-        lo = torch.tensor([p["xMin"], p["yMin"], p["zMin"]][: batch.dim],
-                          dtype=torch.float32, device=pos.device)
-        hi = torch.tensor([p["xMax"], p["yMax"], p["zMax"]][: batch.dim],
-                          dtype=torch.float32, device=pos.device)
+        lo = upload([p["xMin"], p["yMin"], p["zMin"]][: batch.dim],
+                    pos.device)
+        hi = upload([p["xMax"], p["yMax"], p["zMax"]][: batch.dim],
+                    pos.device)
         inside = torch.all((pos >= lo) & (pos <= hi), dim=1)
         keep = ~inside if p["removeInside"] >= 0.5 else inside
         return batch.with_mask(keep)
@@ -153,8 +153,7 @@ class AddDescriptorFilter(DataPointsFilter):
                 f"{len(self.params['descriptorValues'])} != descriptorDimension {k}")
 
     def apply(self, batch, draws=None):
-        vals = torch.tensor(self.params["descriptorValues"],
-                            dtype=torch.float32, device=batch.device)
+        vals = upload(self.params["descriptorValues"], batch.device)
         v = vals[None, :].expand(batch.capacity, vals.shape[0]).contiguous()
         return batch.with_descriptor(self.params["descriptorName"], v)
 
@@ -180,8 +179,8 @@ class CutAtDescriptorThresholdFilter(DataPointsFilter):
             raise ValueError(f"{self.NAME}: missing descriptor '{name}'")
         v = batch.descriptors[name][:, 0]
         # compare in f32, like the descriptor
-        thr = torch.tensor(self.params["threshold"], dtype=torch.float32,
-                           device=v.device)
+        thr = torch.full((), self.params["threshold"], dtype=torch.float32,
+                         device=v.device)
         cut = v > thr if self.params["useLargerThan"] >= 0.5 else v < thr
         return batch.with_mask(~cut)
 
@@ -209,8 +208,8 @@ class RandomSamplingFilter(DataPointsFilter):
             draws = DrawSource(int(self.params["seed"]), batch.device)
         u = draws.uniform(SITE_RANDOM_SAMPLING, batch.capacity)
         u = u.to(batch.device)
-        prob = torch.tensor(self.params["prob"], dtype=torch.float32,
-                            device=batch.device)
+        prob = torch.full((), self.params["prob"], dtype=torch.float32,
+                          device=batch.device)
         return batch.with_mask(u < prob)
 
 

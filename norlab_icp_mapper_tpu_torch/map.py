@@ -13,11 +13,19 @@ Parity with reference ``Map.{h,cpp}``:
 
 The local cloud is a fixed-capacity ``PointBatch`` on the map's device;
 merging, post-filtering and the transforms are tensor passes there; cell
-binning and eviction are host-side numpy (IO and bookkeeping).  Offline
-only: the online update thread of the reference is not ported yet.
+binning and eviction are host-side numpy (IO and bookkeeping).
+
+Window events: ``update_pose(pose, defer=True)`` advances the window and
+returns its load/unload events instead of applying them (the pipelined
+Mapper applies them at its next sync point, ``_apply_update``); online
+(``is_online=True``) the events of an immediate ``update_pose`` go to a
+background cell-update thread (reference ``Map.cpp:29-57``).  A lock guards
+the local cloud against that thread.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -168,13 +176,9 @@ def merge_scan(modules, scan: PointBatch, local: PointBatch,
 class Map:
     def __init__(self, is_3d: bool, is_online: bool,
                  save_cells_on_hard_drive: bool, icp, device="cuda"):
-        if is_online:
-            raise NotImplementedError(
-                "Map(is_online=True) (the background cell-update thread) is "
-                "not ported yet")
         self.is_3d = is_3d
         self.dim = 3 if is_3d else 2
-        self.is_online = False
+        self.is_online = is_online
         self.icp = icp
         self.device = resolve_device(device)
         self.sensor_max_range = DEFAULT_SENSOR_MAX_RANGE
@@ -187,6 +191,38 @@ class Map:
         self.first_pose_update = True
         self.new_local_available = False
         self._window = None  # [inf_r, sup_r, inf_c, sup_c, inf_a, sup_a]
+        self._lock = threading.RLock()
+        self._update_queue: "queue.Queue" = queue.Queue()
+        self._update_thread: Optional[threading.Thread] = None
+        self._thread_running = False
+        if is_online:
+            # reference Map.cpp:29-57: cell IO drains in the background so
+            # registration never waits for a load or an unload
+            self._thread_running = True
+            self._update_thread = threading.Thread(
+                target=self._drain_updates, daemon=True)
+            self._update_thread.start()
+
+    # ------------------------------------------------------------ lifecycle
+    def shutdown(self):
+        if self._update_thread is not None:
+            self._thread_running = False
+            self._update_queue.put(None)
+            self._update_thread.join(timeout=5)
+            self._update_thread = None
+
+    def _drain_updates(self):
+        while self._thread_running:
+            item = self._update_queue.get()
+            try:
+                if item is not None:
+                    self._apply_update(item)
+            finally:
+                self._update_queue.task_done()
+
+    def wait_for_updates(self):
+        """Block until the queued cell updates are applied."""
+        self._update_queue.join()
 
     # ------------------------------------------------------------ accessors
     def add_mapper_module(self, module):
@@ -200,37 +236,49 @@ class Map:
 
     def known_count(self) -> int:
         """Valid points in the local cloud (one device read, then cached)."""
-        if self.local is None:
-            return 0
-        if self._known_count is None:
-            self._known_count = int(self.local.count())
-        return self._known_count
+        with self._lock:
+            if self.local is None:
+                return 0
+            if self._known_count is None:
+                self._known_count = int(self.local.count())
+            return self._known_count
 
     def is_local_point_cloud_empty(self) -> bool:
         return self.known_count() == 0
 
     def get_local_point_cloud(self) -> Optional[PointBatch]:
-        return self.local
+        with self._lock:
+            return self.local
 
     def get_new_local_point_cloud(self):
         """Consume-once local map (reference ``Map.cpp:536-550``)."""
-        if self.new_local_available and self.local is not None:
-            self.new_local_available = False
-            return self.local
-        return None
+        with self._lock:
+            if self.new_local_available and self.local is not None:
+                self.new_local_available = False
+                return self.local
+            return None
 
     def merge_headroom_scans(self) -> int:
         """Free-slot headroom the module chain needs, in scans (see
         ``MapperModule.INSERTS``)."""
         return max(1, sum(getattr(m, "INSERTS", 0) for m in self.modules))
 
+    def growth_bounded_by_decimation(self) -> bool:
+        """True when an active OctreeMapperModule reclaims the inserted scan
+        points every merge: the map then grows only by its new voxels, and
+        the pipelined Mapper sizes its headroom from measured growth."""
+        return any(getattr(m, "NAME", "") == "OctreeMapperModule"
+                   and float(m.params.get("maxSizeByNode", 0)) > 0
+                   for m in self.modules)
+
     def set_local(self, local: PointBatch, count: Optional[int] = None,
                   draws: Optional[DrawSource] = None) -> None:
         """Install a new local cloud and hand it to the ICP engine."""
-        self.local = local
-        self._known_count = count
-        self.icp.set_map(local, draws)
-        self.new_local_available = True
+        with self._lock:
+            self.local = local
+            self._known_count = count
+            self.icp.set_map(local, draws)
+            self.new_local_available = True
 
     def grow_local(self, capacity: int) -> None:
         """Pad the local cloud to ``capacity`` (same points, same count);
@@ -253,23 +301,29 @@ class Map:
         pose_t = torch.as_tensor(np.asarray(pose), dtype=torch.float32)
         hint = int(scan_valid_hint) if scan_valid_hint else scan.capacity
         headroom = self.merge_headroom_scans() * hint
-        if self.is_local_point_cloud_empty():
-            cap = bucket_capacity(hint + headroom)
-            base = PointBatch.empty(cap, scan.dim, device=scan.device)
-            local = merge_scan(self.modules, scan, base, pose_t,
-                               post_filters, draws, create=True)
-        else:
-            cap = bucket_capacity(self.known_count() + headroom)
-            local = self.local.pad_to(cap) \
-                if cap > self.local.capacity else self.local
-            local = merge_scan(self.modules, scan, local, pose_t,
-                               post_filters, draws)
-        self.set_local(local, int(local.count()), draws)
+        with self._lock:
+            if self.is_local_point_cloud_empty():
+                cap = bucket_capacity(hint + headroom)
+                base = PointBatch.empty(cap, scan.dim, device=scan.device)
+                local = merge_scan(self.modules, scan, base, pose_t,
+                                   post_filters, draws, create=True)
+            else:
+                cap = bucket_capacity(self.known_count() + headroom)
+                local = self.local.pad_to(cap) \
+                    if cap > self.local.capacity else self.local
+                local = merge_scan(self.modules, scan, local, pose_t,
+                                   post_filters, draws)
+            self.set_local(local, int(local.count()), draws)
 
     # --------------------------------------------------------- rolling window
-    def update_pose(self, pose: np.ndarray) -> None:
+    def update_pose(self, pose: np.ndarray, defer: bool = False):
         """Reference ``Map.cpp:246-460`` -- window shift with 2-cell
-        hysteresis; entering slabs load, leaving slabs unload."""
+        hysteresis; entering slabs load, leaving slabs unload.
+
+        With ``defer=True`` the window advances but its load/unload events
+        are returned instead of applied (``_apply_update`` applies one);
+        otherwise the result is ``None``."""
+        deferred: Optional[List] = [] if defer else None
         pose = np.asarray(pose)
         d = self.dim
         p = pose[:d, d]
@@ -283,7 +337,8 @@ class Map:
         if self.first_pose_update:
             self._window = [inf[0], sup[0], inf[1], sup[1], inf[2], sup[2]]
             self.cell_manager.clear_all_cells()
-            self.loaded_cell_ids = set()
+            with self._lock:
+                self.loaded_cell_ids = set()
             # partition everything into cells, then restore the window
             self._unload_cells(_MIN_GRID, _MAX_GRID, _MIN_GRID, _MAX_GRID,
                                _MIN_GRID, _MAX_GRID)
@@ -291,7 +346,7 @@ class Map:
             self._load_cells(inf[0] - B, sup[0] + B, inf[1] - B, sup[1] + B,
                              inf[2] - B, sup[2] + B)
             self.first_pose_update = False
-            return
+            return deferred
 
         w = self._window
         B = BUFFER_SIZE
@@ -305,31 +360,45 @@ class Map:
                 if new_lo < w[lo_i]:  # window grew: load entering slab
                     nb = w[lo_i] - new_lo
                     self._schedule_slab(axis, new_lo - B, new_lo - B + nb - 1,
-                                        w, load=True)
+                                        w, load=True, deferred=deferred)
                 else:  # window shrank: unload leaving slab
                     nb = new_lo - w[lo_i]
                     self._schedule_slab(axis, w[lo_i] - B, w[lo_i] - B + nb - 1,
-                                        w, load=False)
+                                        w, load=False, deferred=deferred)
                 w[lo_i] = new_lo
             # superior edge
             if abs(new_hi - w[hi_i]) >= 2:
                 if new_hi < w[hi_i]:
                     nb = w[hi_i] - new_hi
-                    self._schedule_slab(axis, w[hi_i] + B - nb + 1, w[hi_i] + B,
-                                        w, load=False)
+                    self._schedule_slab(axis, w[hi_i] + B - nb + 1,
+                                        w[hi_i] + B, w, load=False,
+                                        deferred=deferred)
                 else:
                     nb = new_hi - w[hi_i]
-                    self._schedule_slab(axis, new_hi + B - nb + 1, new_hi + B,
-                                        w, load=True)
+                    self._schedule_slab(axis, new_hi + B - nb + 1,
+                                        new_hi + B, w, load=True,
+                                        deferred=deferred)
                 w[hi_i] = new_hi
+        return deferred
 
-    def _schedule_slab(self, axis: int, start: int, end: int, w, load: bool):
+    def _schedule_slab(self, axis: int, start: int, end: int, w, load: bool,
+                       deferred: Optional[List] = None):
         B = BUFFER_SIZE
         bounds = [w[0] - B, w[1] + B, w[2] - B, w[3] + B, w[4] - B, w[5] + B]
         bounds[2 * axis] = start
         bounds[2 * axis + 1] = end
         if not self.is_3d:
             bounds[4], bounds[5] = 0, 0
+        update = (load, tuple(bounds))
+        if deferred is not None:
+            deferred.append(update)
+        elif self.is_online:
+            self._update_queue.put(update)
+        else:
+            self._apply_update(update)
+
+    def _apply_update(self, update):
+        load, bounds = update
         if load:
             self._load_cells(*bounds)
         else:
@@ -379,28 +448,31 @@ class Map:
                 if cell is not None and cell["positions"].shape[0] > 0:
                     chunks.append(cell)
                 ids.append(cid)
-        if chunks:
-            data = _stack_cells(chunks)
-            pos = data.pop("positions")
-            incoming = PointBatch.from_numpy(pos[:, :self.dim], data,
-                                             device=self.device)
-            if self.is_local_point_cloud_empty():
-                self.set_local(incoming, pos.shape[0])
-            else:
-                n_total = self.known_count() + pos.shape[0]
-                self.set_local(
-                    concatenate(self.local, incoming,
-                                capacity=bucket_capacity(n_total)), n_total)
-        self.loaded_cell_ids.update(ids)
+        with self._lock:
+            if chunks:
+                data = _stack_cells(chunks)
+                pos = data.pop("positions")
+                incoming = PointBatch.from_numpy(pos[:, :self.dim], data,
+                                                 device=self.device)
+                if self.is_local_point_cloud_empty():
+                    self.set_local(incoming, pos.shape[0])
+                else:
+                    n_total = self.known_count() + pos.shape[0]
+                    self.set_local(
+                        concatenate(self.local, incoming,
+                                    capacity=bucket_capacity(n_total)),
+                        n_total)
+            self.loaded_cell_ids.update(ids)
 
     def _unload_cells(self, sr, er, sc, ec, sa, ea):
         """Reference ``Map.cpp:140-230`` -- partition local cloud by world
         bounds of the cell range, evict the inside portion binned per cell."""
         if not self.is_3d:
             sa, ea = 0, 0
-        if self.local is None:
-            return
-        data = self.local.to_numpy()
+        with self._lock:
+            if self.local is None:
+                return
+            data = self.local.to_numpy()
         pos = data["positions"]
         if pos.shape[0] == 0:
             return
@@ -427,11 +499,13 @@ class Map:
     def get_global_point_cloud(self) -> Dict[str, np.ndarray]:
         """Local cloud + all saved cells not currently loaded
         (reference ``Map.cpp:552-573``). Host-side compact arrays."""
-        parts = []
-        if self.local is not None:
-            parts.append(self.local.to_numpy())
+        with self._lock:
+            parts = []
+            if self.local is not None:
+                parts.append(self.local.to_numpy())
+            loaded = set(self.loaded_cell_ids)
         for cid in self.cell_manager.get_all_cell_ids():
-            if cid not in self.loaded_cell_ids:
+            if cid not in loaded:
                 cell = self.cell_manager.retrieve_cell(cid)
                 if cell is not None and cell["positions"].shape[0] > 0:
                     parts.append(cell)

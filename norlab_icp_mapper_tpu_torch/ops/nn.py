@@ -117,7 +117,7 @@ def pack_refs(ref: torch.Tensor, ref_mask: Optional[torch.Tensor]) -> KnnPack:
     m, dim = ref.shape
     if ref_mask is None:
         order = torch.arange(m, dtype=torch.int32, device=ref.device)
-        n_valid = torch.tensor(m, dtype=torch.int64, device=ref.device)
+        n_valid = torch.full((), m, dtype=torch.int64, device=ref.device)
         return KnnPack(pack_rows4(ref, order), n_valid, dim)
     order, n_valid = valid_first(ref_mask)
     return KnnPack(pack_rows4(ref[order], order), n_valid, dim)

@@ -389,7 +389,8 @@ def _sweep(query, ref, query_mask, ref_mask, k, max_radius, q_tile, W,
     # kernel and the plain version compare against the same value
     r_host = np.float32(max_radius)
     r2 = float(r_host * r_host)
-    r = torch.tensor(float(r_host), dtype=torch.float32, device=dev)
+    # a fill, not a copy from the host: nothing here waits for the card
+    r = torch.full((), float(r_host), dtype=torch.float32, device=dev)
 
     pack = presorted if presorted is not None else presort_ref(ref, ref_mask)
 

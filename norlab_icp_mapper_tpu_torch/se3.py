@@ -30,7 +30,9 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     ti = -(Rt @ t[..., None])[..., 0]
     top = torch.cat([Rt, ti[..., None]], dim=-1)
     bottom = torch.zeros_like(T[..., :1, :])
-    bottom[..., 0, d] = 1.0
+    # fill_, not `= 1.0`: a Python scalar assigned to a 0-d view is copied
+    # from the host, and the host waits for the card's stream
+    bottom[..., 0, d].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

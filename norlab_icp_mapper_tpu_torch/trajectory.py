@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 from .io.vtk import write_vtk
 
@@ -19,22 +20,38 @@ __all__ = ["Trajectory"]
 class Trajectory:
     def __init__(self, dimension: int = 3):
         self.dimension = dimension
-        self._poses: List[np.ndarray] = []
+        self._poses: List = []  # numpy arrays, or device tensors (lazy)
         self.timestamps: List[int] = []  # nanoseconds
+        self._has_device = False
 
     def add_pose(self, pose, timestamp_ns: int) -> None:
-        """Append a pose (anything ``np.asarray`` accepts, a CPU tensor
-        included); a copy is stored."""
-        self._poses.append(np.array(pose, dtype=np.float32))
+        """Append a pose.  A tensor on a card is kept as it is and fetched
+        lazily, with every other such pose in one transfer, on the first
+        host access (the pipelined Mapper appends each scan's pose without
+        waiting for the card); anything else ``np.asarray`` accepts is
+        copied."""
+        if isinstance(pose, torch.Tensor) and pose.device.type != "cpu":
+            self._has_device = True
+        else:
+            pose = np.array(pose, dtype=np.float32)
+        self._poses.append(pose)
         self.timestamps.append(int(timestamp_ns))
 
     @property
     def poses(self) -> List[np.ndarray]:
+        if self._has_device:
+            on_card = [i for i, p in enumerate(self._poses)
+                       if isinstance(p, torch.Tensor)]
+            host = torch.stack([self._poses[i] for i in on_card]).cpu()
+            for i, p in zip(on_card, host.numpy()):
+                self._poses[i] = p.astype(np.float32)
+            self._has_device = False
         return self._poses
 
     def clear(self) -> None:
         self._poses = []
         self.timestamps = []
+        self._has_device = False
 
     def __len__(self) -> int:
         return len(self._poses)

@@ -344,7 +344,7 @@ def test_bound_checker_config_takes_the_stepwise_path_and_throws(rng):
         scan = scan_at(world, true)
         feed(mj, nj.PointBatch, scan, prior, i * int(1e8))
         feed(mt, nt.PointBatch, scan, prior, i * int(1e8), device="cpu")
-        assert mt._meta is None  # the per-scan step never ran
+        assert mt._fused_state is None  # the per-scan step never ran
         np.testing.assert_allclose(mt.get_pose(), mj.get_pose(), atol=1e-4)
     far = pose_at(XS[4])
     far[:3, 3] += np.float32([0.5, 0.3, 0.0])

@@ -453,8 +453,13 @@ def test_update_conditions(rng):
 
 
 def test_queued_facade_features_raise_by_name(rng):
-    with pytest.raises(NotImplementedError, match="is_online"):
-        nt.Mapper(None, is_online=True, device="cpu")
+    # online mode is ported: the mapper starts its map-update worker and the
+    # map's cell-update thread, and stops both at shutdown
+    mo = nt.Mapper(None, is_online=True, device="cpu")
+    assert mo.is_online and mo._executor is not None
+    assert mo.map._update_thread is not None
+    mo.shutdown()
+    assert mo.map._update_thread is None
     with pytest.raises(NotImplementedError, match="mesh"):
         nt.Mapper(None, mesh=object(), device="cpu")
     mt = nt.Mapper(None, device="cpu")  # the default config loads
