@@ -34,6 +34,33 @@ Phases:
   p2point   the default config with the point-to-point minimizer, median and
             surface-normal outlier filters and a step filter, 6 scans; then
             4 scans with a bound checker added (the stepwise path)
+  tracing   the p2plane config again with the overflow sink installed
+            (``utils.tracing``): steady scans without a blocking read, and
+            ``overflow_totals()`` equal to the sum of the counts the passes
+            returned; the last SurfaceNormal pass's recorded count equal to
+            its plain version's, and an insert planted past capacity
+            recording the points it drops
+  checkpoint  the p2plane mapper saved (``utils.save_checkpoint``), loaded
+            into a fresh Mapper with ``localization_only=True``, the last
+            scan registered again: its pose within 1 mm and 0.1 degree
+  octree_k  examples/config.yaml with ``maxPointByNode: 4`` (set in memory)
+            over the sequence, strict: 0 blocking reads, a smaller map than
+            identity's; then ``_octree_select`` on the card against the CPU
+            on the full union (131,072 + 49,152 rows), four methods, bit
+            for bit
+  filters   the ten filters of the zoo on a 49,152-point scan, card against
+            CPU; then a config whose input chain adds RemoveNaN, MinDist,
+            MaxDist, VoxelGrid and ObservationDirection, strict
+  posegraph a closed loop of 36 scans 0.8 m apart around a box, drifting
+            odometry, ``enable_keyframes(min_distance=1.0)`` and
+            ``refine_trajectory(max_dist=3.0)``, the first call's set-up
+            split by the calls it makes: a loop closure, none false, less
+            keyframe error than the drift, keyframe normals without
+            overflow, registrations with the kernels against their plain
+            version; then ``refine_trajectory()`` at its defaults (pairs
+            within 8 m): less keyframe error than the drift, its false
+            closures counted against the truth;
+            ``knn_brute`` and ``radius_pca`` held at this path's shapes
   profile   device time of the new kernels by name and device launches per
             stage, from ``torch.profiler`` (last: its hooks slow every later
             launch); then the ``phase_split`` line: the SurfaceNormal radius
@@ -69,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -1445,15 +1473,23 @@ def no_sync(mapper, tally, on: bool):
         tally[f"waits_{k}"] += v - before[k]
 
 
-def drive(config_name, scans, priors, phase, strict=False, online=False):
+def drive(config_name, scans, priors, phase, strict=False, online=False,
+          config=None, setup=None):
     """Feed the sequence through a fresh Mapper, draining after each scan
     (step-locked); returns the mapper and the per-scan records.  ``strict``
-    runs the steady-state scans' filters and step under ``no_sync``."""
+    runs the steady-state scans' filters and step under ``no_sync``.
+    ``config`` (a dict) replaces the file ``config_name`` names, which
+    then only labels the record; ``setup(mapper)`` runs before the first
+    scan."""
     import collections
     import norlab_icp_mapper_tpu_torch as nt
-    mapper = nt.Mapper(os.path.join(HERE, "examples", config_name),
-                       is_3d=True, device="cuda", seed=0, is_online=online)
+    mapper = nt.Mapper(
+        config if config is not None
+        else os.path.join(HERE, "examples", config_name),
+        is_3d=True, device="cuda", seed=0, is_online=online)
     mapper.timer.enabled = True
+    if setup is not None:
+        setup(mapper)
     reset_counts()
     per_scan, counts, valid, iters = [], [], [], []
     syncs = collections.Counter()
@@ -1489,6 +1525,7 @@ def drive(config_name, scans, priors, phase, strict=False, online=False):
         "scans": len(scans), "valid_points_per_scan_min": min(valid),
         "per_scan_ms": [round(v, 2) for v in per_scan],
         "steady_ms_per_scan": statistics.mean(steady),
+        "steady_ms_median": statistics.median(steady),
         "scans_per_s": 1e3 / statistics.mean(steady),
         "map_counts": counts, "final_map_count": counts[-1],
         "map_capacity": mapper.map.local.capacity,
@@ -1867,6 +1904,717 @@ def finish_no_radius_phase(mapper, rec, priors, poses):
           f"{launch}")
 
 
+# ---------------------------------------------------------------------------
+# octree leaves (maxPointByNode > 1), the filter zoo, overflow records,
+# checkpoints, keyframes and the pose graph
+# ---------------------------------------------------------------------------
+
+def config_dict(name, k_octree=None, extra_input=()):
+    """A bundled YAML as a dict, edited in memory (the file stays as it is):
+    ``maxPointByNode`` on its OctreeMapperModule, filters appended to its
+    input chain."""
+    import yaml
+    with open(os.path.join(HERE, "examples", name)) as fh:
+        cfg = yaml.safe_load(fh)
+    if k_octree is not None:
+        for m in cfg["mapper"]["mapperModule"]:
+            if "OctreeMapperModule" in m:
+                m["OctreeMapperModule"]["maxPointByNode"] = k_octree
+    cfg["input"] = list(cfg.get("input") or []) + list(extra_input)
+    return cfg
+
+
+def check_small_map(mapper, rec, n_scans):
+    """What check_map holds, for maps that other configs make smaller."""
+    m = mapper.get_map()
+    phase = rec["phase"]
+    check(m["positions"].shape[0] > 10_000,
+          f"{phase}: final map holds {m['positions'].shape[0]} points")
+    check(np.isfinite(m["positions"]).all(), f"{phase}: non-finite map")
+    nrm = np.linalg.norm(m["normals"], axis=1)
+    check(np.abs(nrm - 1.0).max() < 1e-3, f"{phase}: a normal is not unit")
+    check(len(mapper.get_trajectory()) == n_scans,
+          f"{phase}: trajectory length differs from the number of scans")
+
+
+def union_cloud(scans, poses, seed, dev):
+    """The octree's input at full width: a map of capacity 131,072 and a
+    scan of capacity 49,152 in the map frame, concatenated (the union the
+    OctreeMapperModule decimates)."""
+    import norlab_icp_mapper_tpu_torch as nt
+    world_pts = numpy_map(scans[:8], poses[:8])
+    rng = np.random.default_rng(seed)
+    limit = int(0.84 * MAP_CAPACITY)  # 110,100 points
+    if world_pts.shape[0] > limit:
+        world_pts = world_pts[np.sort(rng.choice(world_pts.shape[0], limit,
+                                                 replace=False))]
+    mp = nt.PointBatch.from_numpy(world_pts, capacity=MAP_CAPACITY,
+                                  device=dev)
+    sc = nt.PointBatch.from_numpy(scans[8], capacity=SCAN_CAPACITY,
+                                  device=dev)
+    sc = nt.se3.apply(torch.from_numpy(poses[8]), sc)
+    return (torch.cat([mp.positions, sc.positions]),
+            torch.cat([mp.mask, sc.mask]))
+
+
+def hold_octree_select(scans, poses, seed, k=4, voxel=0.15):
+    """``_octree_select`` on the card against the same function on CPU
+    tensors, the same draws, on the full union: keep masks and centroids
+    bit for bit, for the four sampling methods."""
+    from norlab_icp_mapper_tpu_torch.ops import voxel as V
+    pos, mask = union_cloud(scans, poses, seed, "cpu")
+    n = pos.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    prio = torch.randint(0, 1 << 15, (n,), generator=g)
+    leaf = torch.randint(0, 1 << 30, (n,), generator=g)
+    gpu = [t.cuda() for t in (pos, mask, prio, leaf)]
+    out = {"phase": "octree_select_card_vs_cpu", "rows": n,
+           "valid": int(mask.sum()), "maxPointByNode": k, "voxel": voxel}
+    for method in range(4):
+        kc, cc = V.voxel_select(pos, mask, voxel, method, prio, k,
+                                leaf_keys=leaf)
+        kg, cg = V.voxel_select(gpu[0], gpu[1], voxel, method, gpu[2], k,
+                                leaf_keys=gpu[3])
+        same_keep = bool(torch.equal(kg.cpu(), kc))
+        same_cent = bool(torch.equal(cg.cpu()[kc], cc[kc]))
+        ms = time_cuda(lambda: V.voxel_select(gpu[0], gpu[1], voxel, method,
+                                              gpu[2], k, leaf_keys=gpu[3]),
+                       reps=5, warmup=1)
+        out[f"method{method}"] = {"kept": int(kc.sum()),
+                                  "keep_bit_identical": same_keep,
+                                  "centroid_bit_identical": same_cent,
+                                  "card_ms": ms}
+        check(same_keep and same_cent,
+              f"octree_k: method {method} on the card differs from the CPU "
+              f"run (keep equal: {same_keep}, centroids equal: {same_cent})")
+    k1, _ = V.voxel_select(pos, mask, voxel, 0)
+    out["kept_k1_method0"] = int(k1.sum())
+    check(out["method0"]["kept"] < out["kept_k1_method0"],
+          "octree_k: maxPointByNode > 1 kept no fewer points than 1")
+    emit(out)
+
+
+def phase_octree_k(scans, poses, seed, identity_map_count):
+    """examples/config.yaml with maxPointByNode: 4 over the sequence:
+    steady scans without a blocking read, a smaller map than K = 1 builds;
+    then the selection on the card against the CPU."""
+    mapper, rec = drive("config.yaml", scans, poses, "octree_k", strict=True,
+                        config=config_dict("config.yaml", k_octree=4))
+    rec["config"] = ("examples/config.yaml, maxPointByNode: 4 on its "
+                     "OctreeMapperModule")
+    rec["identity_final_map_count"] = identity_map_count
+    emit(rec)
+    check_small_map(mapper, rec, len(scans))
+    check_sync(rec)
+    check(rec["final_map_count"] < identity_map_count,
+          f"octree_k: the map holds {rec['final_map_count']} points, not "
+          f"fewer than the K = 1 map's {identity_map_count}")
+    launch = rec["launches"]
+    check(launch.get("sweep_knn[D=3,k=1]", 0) > 0
+          and launch["radius_pca[D=3]"] == len(scans),
+          f"octree_k: a kernel of the path was not launched: {launch}")
+    check_graph_launches("octree_k", launch, len(scans))
+    hold_octree_select(scans, poses, seed)
+    return launch
+
+
+FILTER_CASES = [
+    ("MaxPointCountDataPointsFilter", {"maxCount": 30000}),
+    ("OrientNormalsDataPointsFilter", {"towardCenter": 1}),
+    ("OctreeGridDataPointsFilter", {"maxSizeByNode": 0.15,
+                                    "samplingMethod": 1}),
+    ("OctreeGridDataPointsFilter", {"maxSizeByNode": 0.15,
+                                    "samplingMethod": 3}),
+    ("ObservationDirectionDataPointsFilter", {"x": 0.1, "y": 0.0,
+                                              "z": -0.2}),
+    ("MaxDistDataPointsFilter", {"dim": -1, "maxDist": 20.0}),
+    ("MinDistDataPointsFilter", {"dim": -1, "minDist": 3.0}),
+    ("ShadowDataPointsFilter", {"eps": 0.2}),
+    ("VoxelGridDataPointsFilter", {"vSizeX": 0.1, "vSizeY": 0.1,
+                                   "vSizeZ": 0.1, "useCentroid": 1}),
+    ("IdentityDataPointsFilter", {}),
+    ("RemoveNaNDataPointsFilter", {}),
+]
+FILTER_TOL = 1e-6  # descriptors and positions: the same f32 operations
+
+FILTERS_INPUT = [
+    {"RemoveNaNDataPointsFilter": {}},
+    {"MinDistDataPointsFilter": {"dim": -1, "minDist": 1.0}},
+    {"MaxDistDataPointsFilter": {"dim": -1, "maxDist": 50.0}},
+    {"VoxelGridDataPointsFilter": {"vSizeX": 0.05, "vSizeY": 0.05,
+                                   "vSizeZ": 0.05, "useCentroid": 1}},
+    {"ObservationDirectionDataPointsFilter": {}},
+]
+
+
+def max_diff(a, b) -> float:
+    """Largest |a - b|; a NaN on one side only counts as infinite, NaN on
+    both sides as equal."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return float("inf")
+    d = (torch.where(nan_a, 0.0, a) - torch.where(nan_b, 0.0, b)).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def phase_filters(scans, seed):
+    """Each of the ten filters on a 49,152-point scan on the card against
+    its run on the CPU (same draws); then a config whose input chain uses
+    RemoveNaN, MinDist, MaxDist, VoxelGrid and ObservationDirection over
+    the sequence, steady scans without a blocking read."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch.filters import core as F
+    rng = np.random.default_rng(seed + 3)
+    pts = scans[8].copy()
+    pts[rng.random(pts.shape[0]) < 0.01] = np.nan
+    nrm = rng.normal(size=pts.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    prio = rng.integers(0, 1 << 15, size=SCAN_CAPACITY)
+    cpu = nt.PointBatch.from_numpy(pts, {"normals": nrm},
+                                   capacity=SCAN_CAPACITY, device="cpu")
+    # NaN rows of the scan stay valid here, as a reader would leave them,
+    # except for the voxel filters, which need finite coordinates
+    finite = cpu.mask & torch.isfinite(cpu.positions).all(1)
+    recs = []
+    for name, params in FILTER_CASES:
+        f = F.filter_registry.create(name, dict(params))
+        base = cpu if name.startswith(("RemoveNaN", "Identity")) \
+            else cpu.with_mask(finite)
+        gb = base.to("cuda")
+        src = lambda site, n: prio[:n]  # noqa: E731
+        oc = f.apply(base, nt.DrawSource(0, "cpu", src))
+        og = f.apply(gb, nt.DrawSource(0, "cuda", src))
+        torch.cuda.synchronize()
+        mask_eq = bool(torch.equal(og.mask.cpu(), oc.mask))
+        m = oc.mask
+        errs = {"positions": max_diff(og.positions.cpu()[m], oc.positions[m])}
+        for k, v in oc.descriptors.items():
+            errs[k] = max_diff(og.descriptors[k].cpu()[m], v[m])
+        ms = time_cuda(lambda: f.apply(gb, nt.DrawSource(0, "cuda", src)))
+        rec = {"filter": name, "params": params, "kept": int(m.sum()),
+               "valid_in": int(base.mask.sum()), "masks_equal": mask_eq,
+               "max_abs_err": errs, "card_ms": ms}
+        recs.append(rec)
+        check(mask_eq and max(errs.values()) <= FILTER_TOL,
+              f"filters: {name} on the card differs from the CPU: {rec}")
+    emit({"phase": "filters_card_vs_cpu", "scan_capacity": SCAN_CAPACITY,
+          "tolerance": FILTER_TOL, "filters": recs})
+    return recs
+
+
+def phase_filters_drive(scans, poses):
+    mapper, rec = drive("config.yaml", scans, poses, "filters", strict=True,
+                        config=config_dict("config.yaml",
+                                           extra_input=FILTERS_INPUT))
+    rec["config"] = ("examples/config.yaml, input chain + RemoveNaN, "
+                     "MinDist, MaxDist, VoxelGrid, ObservationDirection")
+    emit(rec)
+    check_small_map(mapper, rec, len(scans))
+    check_sync(rec)
+    check("observationDirections" in mapper.get_map(),
+          "filters: the map lost the ObservationDirection descriptor")
+    check_graph_launches("filters", rec["launches"], len(scans))
+    return rec["launches"]
+
+
+def phase_tracing(scans, priors):
+    """The point-to-plane config with the overflow sink installed: steady
+    scans without a blocking read, and ``overflow_totals()`` equal to the
+    sum of the counts the passes returned (each pass's ``last_overflow``,
+    taken at every call).  Two counts are also held against ones made
+    without the pass: the last SurfaceNormal pass's recorded count against
+    the plain version's on a copy of its input, and an insert planted past
+    the buffer's capacity against the number of points it must drop."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca_normals_plain
+    from norlab_icp_mapper_tpu_torch.points import insert
+    from norlab_icp_mapper_tpu_torch.utils import tracing
+    seen = {"icp_matcher_sweep": [], "dynamic_points_sweep": [],
+            "surface_normal_sweep": []}
+    recorded = {}
+    normals_input = {}
+
+    def sink(name, value):
+        recorded.setdefault(name, []).append(value)
+        tracing.accumulate_overflow(name, value)
+
+    def tap(obj, method, attr_of, key):
+        inner = getattr(obj, method)
+
+        def tapped(*a, **kw):
+            out = inner(*a, **kw)
+            seen[key].append(attr_of().last_overflow)
+            return out
+        setattr(obj, method, tapped)
+
+    def setup(m):
+        tap(m.icp, "solve", lambda: m.icp, "icp_matcher_sweep")
+        dyn = m.map.modules[0]
+        tap(dyn, "update_map", lambda: dyn, "dynamic_points_sweep")
+        sn = m.post_filters.filters[0]
+        inner = sn._apply_radius_pca
+
+        def keep_input(batch, k, max_dist):
+            # a copy: nothing the mapper does later can change it
+            normals_input.update(positions=batch.positions.clone(),
+                                 mask=batch.mask.clone(), k=k,
+                                 max_dist=max_dist)
+            return inner(batch, k, max_dist)
+        sn._apply_radius_pca = keep_input
+        tap(sn, "_apply_radius_pca", lambda: sn, "surface_normal_sweep")
+
+    base = tracing.overflow_totals()
+    tracing.set_overflow_sink(sink)
+    try:
+        mapper, rec = drive("config_p2plane.yaml", scans, priors, "tracing",
+                            strict=True, setup=setup)
+        # the SurfaceNormal filter's pass, as it calls the kernel
+        # (filters/core.py), through the plain version
+        ni = normals_input
+        plain_ov = int(radius_pca_normals_plain(
+            ni["positions"], ni["positions"], ni["mask"], ni["mask"],
+            max_radius=ni["max_dist"], q_tile=1024,
+            W=2048 if ni["max_dist"] <= 1.0 else 4096,
+            min_count=min(ni["k"], 3))[3])
+        # 1,000 points in a buffer of 1,024, then 100 more: 76 dropped
+        dst = nt.PointBatch.from_numpy(
+            scans[0][:1000], capacity=1024, device="cuda")
+        src = nt.PointBatch.from_numpy(
+            scans[0][1000:1100], capacity=128, device="cuda")
+        ins_base = tracing.overflow_totals().get("points_insert", 0)
+        insert(dst, src)
+        planted = tracing.overflow_totals()["points_insert"] - ins_base
+    finally:
+        tracing.set_overflow_sink(None)
+    tot = tracing.overflow_totals()
+    delta = {k: v - base.get(k, 0) for k, v in tot.items()}
+    delta["points_insert"] -= planted
+    sums = {k: sum(int(t) for t in v) for k, v in seen.items()}
+    last_normals = int(recorded["surface_normal_sweep"][-1])
+    rec.update({"overflow_totals": delta, "wrapper_overflow_sums": sums,
+                "passes_recorded": {k: len(v) for k, v in seen.items()},
+                "last_surface_normal_pass": {"recorded": last_normals,
+                                             "plain_version": plain_ov},
+                "planted_insert_dropped": {"recorded": planted,
+                                           "expected": 76}})
+    emit(rec)
+    check_sync(rec)
+    check(last_normals == plain_ov and plain_ov > 0,
+          f"tracing: the last SurfaceNormal pass recorded {last_normals} "
+          f"overflowing tiles, its plain version counts {plain_ov}")
+    check(planted == 76, f"tracing: an insert of 100 points into 24 free "
+                         f"slots recorded {planted} dropped, not 76")
+    for k, v in sums.items():
+        check(delta.get(k, 0) == v and len(seen[k]) > 0,
+              f"tracing: overflow_totals()[{k}] = {delta.get(k)} but the "
+              f"passes returned {v} over {len(seen[k])} calls")
+    if rec["mapper_waits"]["remerge"] == 0:
+        check(delta.get("points_insert", 0) == 0,
+              f"tracing: inserts dropped points without a re-merge: {delta}")
+    return rec["launches"]
+
+
+def rot_angle(R) -> float:
+    """The angle of a rotation matrix, by atan2 (arccos of the trace loses
+    half the digits near 0)."""
+    R = np.asarray(R, np.float64)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.arctan2(0.5 * np.linalg.norm(w),
+                            0.5 * (np.trace(R) - 1.0)))
+
+
+def phase_checkpoint(p2_mapper, scans, priors):
+    """Save the point-to-plane mapper; load into a fresh Mapper with
+    ``localization_only=True``; register the last scan: its pose within
+    1 mm and 0.1 degree of the pose the offline mapper itself gives that
+    scan once frozen (both register against the same map)."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch.utils import (load_checkpoint,
+                                                   save_checkpoint)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "checkpoint_p2plane.npz")
+    t0 = time.time()
+    save_checkpoint(path, p2_mapper)
+    save_s = time.time() - t0
+    size = os.path.getsize(path)
+    m2 = nt.Mapper(os.path.join(HERE, "examples", "config_p2plane.yaml"),
+                   is_3d=True, device="cuda", seed=0)
+    t0 = time.time()
+    load_checkpoint(path, m2, localization_only=True)
+    load_s = time.time() - t0
+    os.remove(path)
+    n_map = m2.map.known_count()
+    stamp = int(len(scans) * 1e8)
+    mapped = p2_mapper.get_trajectory().poses[-1]
+    p2_mapper.set_is_mapping(False)
+    for m in (m2, p2_mapper):
+        # the reading filter's random sampling: the same draws for both
+        m.draws = nt.DrawSource(1, m.device)
+        batch = nt.PointBatch.from_numpy(scans[-1], capacity=SCAN_CAPACITY,
+                                         device="cuda")
+        m.process_input(m.apply_input_filters(batch), priors[-1], stamp)
+        m.drain()
+    pose, offline = m2.get_pose(), p2_mapper.get_pose()
+    dt = float(np.linalg.norm(pose[:3, 3] - offline[:3, 3]))
+    dr = rot_angle(pose[:3, :3].T.astype(np.float64) @ offline[:3, :3])
+    rec = {"phase": "checkpoint", "bytes": size, "save_s": save_s,
+           "load_s": load_s, "map_points": n_map,
+           "map_points_after_scan": m2.map.known_count(),
+           "pose_diff_m": dt, "pose_diff_deg": float(np.degrees(dr)),
+           "pose_diff_to_mapping_run_m": float(np.linalg.norm(
+               pose[:3, 3] - mapped[:3, 3])),
+           "trajectory_length": len(m2.get_trajectory())}
+    emit(rec)
+    check(not m2.get_is_mapping(), "checkpoint: mapping was not frozen")
+    check(rec["map_points_after_scan"] == n_map,
+          "checkpoint: the localization-only mapper changed its map")
+    check(dt <= 1e-3 and np.degrees(dr) <= 0.1,
+          f"checkpoint: the pose differs from the offline one by {dt} m and "
+          f"{np.degrees(dr)} degrees")
+
+
+LOOP_SCANS = 36  # one lap (31.4 scans) and a little more
+LOOP_CENTER = (30.75, 10.0)  # the third box, [30, 31.5] x [8, 12]
+LOOP_RADIUS = 4.0
+# candidate pairs: keyframes at least 5 apart in the store and at most 3 m
+# apart in space, i.e. the places the robot came back to.  Farther pairs
+# see the box from its other side, and their registrations can slide by
+# its width onto the face they do see (the reference's algorithm alike):
+# the phase also runs ``refine_trajectory``'s default of 8 m and records
+# how many of its closures are false.
+LOOP_MAX_DIST = 3.0
+# a closure whose measured relative pose is this far from the true one
+FALSE_CLOSURE_M = 0.5
+
+
+def make_loop(seed, n_scans=LOOP_SCANS, step=0.8):
+    """The robot drives a closed loop around a box: ``n_scans`` scans
+    ``step`` m apart on a circle (one lap and a little more), heading along
+    it; scans in the sensor frame and true poses, as ``make_sequence``."""
+    rng = np.random.default_rng(seed + 11)
+    dirs = lidar_dirs()
+    G = rot_z(WORLD_YAW)
+    scans, poses = [], []
+    for i in range(n_scans):
+        th = i * step / LOOP_RADIUS
+        P = rot_z(th + np.pi / 2)
+        P[:3, 3] = [LOOP_CENTER[0] + LOOP_RADIUS * np.cos(th),
+                    LOOP_CENTER[1] + LOOP_RADIUS * np.sin(th), SENSOR_HEIGHT]
+        rng_m = ray_cast(P[:3, 3], dirs @ P[:3, :3].T)
+        rng_m = rng_m + rng.normal(scale=0.01, size=rng_m.shape)
+        scans.append((dirs * rng_m[:, None]).astype(np.float32))
+        poses.append((G @ P).astype(np.float32))
+    return scans, poses
+
+
+def drift(true_poses, seed):
+    """Odometry that drifts: the true relative motions, each multiplied by
+    seeded SE(3) noise (the drift of the JAX package's keyframe test,
+    tests/test_pose_graph_batched.py)."""
+    from norlab_icp_mapper_tpu_torch import se3
+    rng = np.random.default_rng(seed + 13)
+    sigma = np.array([0.04, 0.04, 0.0, 0.0, 0.0, 0.015], np.float32)
+    out = [true_poses[0]]
+    for i in range(1, len(true_poses)):
+        rel = np.linalg.inv(true_poses[i - 1]) @ true_poses[i]
+        noise = se3.exp_se3(torch.from_numpy(
+            rng.normal(size=6).astype(np.float32) * sigma)).numpy()
+        out.append((out[-1] @ rel @ noise).astype(np.float32))
+    return out
+
+
+def hold_registrations(kf_pos, kf_mask, poses, cand, normals, iters):
+    """``register_pairs_batched`` with the kernels against its plain
+    version on the card, on the first candidate pairs: T within 1e-4 m and
+    1e-4 rad, overlap and rms within 1e-5."""
+    from norlab_icp_mapper_tpu_torch.slam import pose_graph as PG
+    pairs = cand[:3]
+    ii = torch.tensor([i for i, _ in pairs], device="cuda")
+    jj = torch.tensor([j for _, j in pairs], device="cuda")
+    rel0 = np.stack([np.linalg.inv(poses[i]) @ poses[j] for i, j in pairs])
+    args = (kf_pos[jj], kf_mask[jj], kf_pos[ii], normals[ii], kf_mask[ii],
+            rel0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    Tk, ok, rk = PG.register_pairs_batched(*args, iters=iters)
+    torch.cuda.synchronize()
+    kernel_s = time.time() - t0
+    t0 = time.time()
+    Tp, op, rp = PG.register_pairs_batched_plain(*args, iters=iters)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    Tk, Tp = Tk.cpu().numpy(), Tp.cpu().numpy()
+    dt = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+             for a, b in zip(Tk, Tp))
+    dr = max(rot_angle(a[:3, :3].T.astype(np.float64) @ b[:3, :3])
+             for a, b in zip(Tk, Tp))
+    d_ov = float((ok - op).abs().max())
+    d_rms = float((rk - rp).abs().max())
+    rec = {"pairs": [list(p) for p in pairs], "T_max_diff_m": dt,
+           "T_max_diff_rad": dr, "overlap_max_diff": d_ov,
+           "rms_max_diff": d_rms, "kernel_ms_per_pair":
+           kernel_s * 1e3 / len(pairs),
+           "plain_ms_per_pair": plain_s * 1e3 / len(pairs)}
+    check(dt <= 1e-4 and dr <= 1e-4 and d_ov <= 1e-5 and d_rms <= 1e-5,
+          f"posegraph: the registrations with the kernels differ from the "
+          f"plain version's: {rec}")
+    return rec
+
+
+def clock_calls(targets):
+    """Replace each ``(owner, attribute, key)`` by a wrapper that
+    synchronizes the card around every call and keeps, under ``key``, the
+    number of calls, the first call's seconds and the total; a key ending in
+    ``()`` names a factory, whose returned functions are clocked instead
+    (``torch.func.jacfwd``: its first call traces).  Returns the record and
+    a function that puts the originals back."""
+    rec, undo = {}, []
+
+    def clocked(key, fn):
+        r = rec.setdefault(key, {"calls": 0, "first_s": None,
+                                 "total_s": 0.0})
+
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            if r["first_s"] is None:
+                r["first_s"] = dt
+            r["calls"] += 1
+            r["total_s"] += dt
+            return out
+        return call
+
+    for owner, attr, key in targets:
+        inner = getattr(owner, attr)
+        if key.endswith("()"):
+            def factory(*a, _inner=inner, _key=key, **kw):
+                return clocked(_key, _inner(*a, **kw))
+            setattr(owner, attr, factory)
+        else:
+            setattr(owner, attr, clocked(key, inner))
+        undo.append((owner, attr, inner))
+
+    def restore():
+        for owner, attr, inner in undo:
+            setattr(owner, attr, inner)
+    return rec, restore
+
+
+def closure_errors(kf_pos, kf_mask, kf_poses, true_t, true_R, max_dist,
+                   defaults):
+    """The loop closures ``refine_trajectory`` accepts at ``max_dist`` (its
+    other settings at their defaults), each measured relative pose against
+    the true one: ``(pairs, translation errors m, rotation errors deg)``."""
+    from norlab_icp_mapper_tpu_torch.slam import pose_graph as PG
+    ei, ej, Z, _ = PG.detect_loop_closures_batched(
+        kf_pos, kf_mask, kf_poses, min_index_gap=defaults["min_index_gap"],
+        max_dist=max_dist, min_overlap=defaults["min_overlap"],
+        match_max_dist=defaults["match_max_dist"],
+        iters=defaults["icp_iters"], normal_radius=defaults["normal_radius"],
+        max_rms=defaults["max_rms"])
+    dt, dr = [], []
+    for i, j, z in zip(ei, ej, Z):
+        R = true_R[i].T @ true_R[j]
+        t = true_R[i].T @ (true_t[j] - true_t[i])
+        dt.append(float(np.linalg.norm(z[:3, 3] - t)))
+        dr.append(float(np.degrees(rot_angle(
+            R.T.astype(np.float64) @ z[:3, :3]))))
+    return list(zip(ei, ej)), dt, dr
+
+
+def phase_posegraph(seed, rng):
+    """A closed loop around a box, drifting odometry, examples/config.yaml
+    (identity minimizer: the trajectory IS the odometry), keyframes every
+    metre, then ``refine_trajectory``: at least one accepted loop closure,
+    a smaller keyframe position error than the drift's, keyframe normals
+    that end without overflow, and the registrations held against their
+    plain version.  Also holds ``knn_brute`` and ``radius_pca`` at the
+    shapes this path gives them."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch.slam import pose_graph as PG
+    t0 = time.time()
+    scans, truth = make_loop(seed)
+    priors = drift(truth, seed)
+    seq_s = time.time() - t0
+    mapper = nt.Mapper(os.path.join(HERE, "examples", "config.yaml"),
+                       is_3d=True, device="cuda", seed=0)
+    mapper.enable_keyframes(min_distance=1.0)
+    reset_counts()
+    batches = [nt.PointBatch.from_numpy(s, capacity=SCAN_CAPACITY,
+                                        device="cuda") for s in scans]
+    t0 = time.time()
+    for i, b in enumerate(batches):
+        mapper.process_input(mapper.apply_input_filters(b), priors[i],
+                             int(i * 1e8))
+    mapper.drain()
+    map_s = time.time() - t0
+    map_launch = read_counts()
+    kf_pos, kf_mask, kf_poses = mapper.get_keyframes()
+    n_kf = kf_poses.shape[0]
+    defaults = {k: v.default for k, v in inspect.signature(
+        nt.Mapper.refine_trajectory).parameters.items()
+        if v.default is not inspect.Parameter.empty}
+    icp_iters, min_gap = defaults["icp_iters"], defaults["min_index_gap"]
+    cand = PG._candidates(kf_poses, min_gap, LOOP_MAX_DIST)
+
+    # the first call, cold, as an offline job makes it; its set-up split by
+    # the calls it makes, each clocked between synchronizes
+    split, restore = clock_calls([
+        (PG, "keyframe_normals", "keyframe_normals"),
+        (PG, "register_pairs_batched", "register_pairs_batched"),
+        (PG, "optimize_pose_graph", "optimize_pose_graph"),
+        (torch.linalg, "solve", "torch.linalg.solve"),
+        (torch.linalg, "solve_ex", "torch.linalg.solve_ex"),
+        (torch.func, "jacfwd", "torch.func.jacfwd()")])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        before, after, info = mapper.refine_trajectory(
+            max_dist=LOOP_MAX_DIST)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    refine_s = time.time() - t0
+    launch = read_counts()
+    knn_l = launch.get("knn_brute[D=3,k=1]", 0)
+    pca_l = launch["radius_pca[D=3]"]
+    top = ("keyframe_normals", "register_pairs_batched",
+           "optimize_pose_graph")
+    split["rest_of_the_call"] = {
+        "total_s": refine_s - sum(split[k]["total_s"] for k in top)}
+
+    # keyframe i was taken at the scan whose prior it holds
+    idx = [int(np.argmin([np.linalg.norm(p[:3, 3] - k[:3, 3])
+                          for p in priors])) for k in kf_poses]
+    true_t = np.stack([truth[i][:3, 3] for i in idx])
+    true_R = np.stack([truth[i][:3, :3] for i in idx])
+
+    def mean_err(poses):
+        return float(np.linalg.norm(poses[:, :3, 3] - true_t, axis=1).mean())
+    err_before, err_after = mean_err(before), mean_err(after)
+
+    # refine_trajectory with every setting at its default (candidate pairs
+    # within 8 m: across the box too), beside the 3 m run
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, after_def, info_def = mapper.refine_trajectory()
+    torch.cuda.synchronize()
+    default_s = time.time() - t0
+    launch_def = read_counts()
+    cand_def = PG._candidates(kf_poses, min_gap, defaults["max_dist"])
+    closures = {}
+    for name, dist, inf in (("3m", LOOP_MAX_DIST, info),
+                            ("default", defaults["max_dist"], info_def)):
+        pairs, dt, dr = closure_errors(kf_pos, kf_mask, kf_poses, true_t,
+                                       true_R, dist, defaults)
+        closures[name] = {
+            "max_dist_m": dist, "pairs": [list(p) for p in pairs],
+            "same_pairs_as_refine": pairs == inf["loop_closures"],
+            "translation_error_m": dt, "rotation_error_deg": dr,
+            "false": sum(e > FALSE_CLOSURE_M for e in dt)}
+    default_run = {
+        "max_dist_m": defaults["max_dist"], "candidate_pairs": len(cand_def),
+        "loop_closures": len(info_def["loop_closures"]),
+        "false_closures": closures["default"]["false"],
+        "refine_s": default_s, "keyframe_error_after_m": mean_err(after_def),
+        "launches_knn_brute_k1": launch_def.get("knn_brute[D=3,k=1]", 0),
+        "launches_radius_pca": launch_def["radius_pca[D=3]"]}
+    refs = sorted({i for i, _ in cand})
+    ref_t = torch.tensor(refs, device="cuda")
+    normals = torch.zeros_like(kf_pos)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    nrm, ov, Ws = PG.keyframe_normals(kf_pos[ref_t], kf_mask[ref_t],
+                                      radius=1.0, return_overflow=True)
+    torch.cuda.synchronize()
+    normals_s = time.time() - t0
+    normals[ref_t] = nrm
+    reg = hold_registrations(kf_pos, kf_mask, kf_poses, cand, normals,
+                             icp_iters)
+    # where the refinement's time goes, warm: the whole call again, the
+    # Gauss-Newton solve alone on the same graph
+    t0 = time.time()
+    mapper.refine_trajectory(max_dist=LOOP_MAX_DIST)
+    torch.cuda.synchronize()
+    refine_warm_s = time.time() - t0
+    ei, ej, Z = PG.sequential_edges(before)
+    lz = np.stack([np.linalg.inv(before[i]) @ before[j]
+                   for i, j in info["loop_closures"]]).astype(np.float32)
+    t0 = time.time()
+    PG.optimize_pose_graph(before, ei + [i for i, _ in info["loop_closures"]],
+                           ej + [j for _, j in info["loop_closures"]],
+                           np.concatenate([Z, lz]), iters=10, device="cuda")
+    gn_s = time.time() - t0
+    rec = {"phase": "posegraph", "scans": len(scans), "step_m": 0.8,
+           "loop_radius_m": LOOP_RADIUS, "sequence_s": seq_s,
+           "mapping_s": map_s, "keyframes": n_kf, "candidate_pairs":
+           len(cand), "loop_closures": len(info["loop_closures"]),
+           "edges": info["n_edges"], "refine_s": refine_s,
+           "refine_cold_split": split, "refine_warm_s": refine_warm_s,
+           "gauss_newton_warm_s": gn_s,
+           "keyframe_normals_s": normals_s,
+           "refine_launches_knn_brute_k1": knn_l,
+           "refine_launches_radius_pca": pca_l,
+           "keyframe_error_before_m": err_before,
+           "keyframe_error_after_m": err_after,
+           "default_settings": default_run, "closures_against_truth":
+           closures, "false_closure_m": FALSE_CLOSURE_M,
+           "gn_costs": [float(c) for c in info["costs"]],
+           "keyframe_normals_overflow": [int(v) for v in ov],
+           "keyframe_normals_W": Ws, "registration_kernel_vs_plain": reg,
+           "mapping_launches": map_launch}
+    emit(rec)
+    check(n_kf >= 12, f"posegraph: {n_kf} keyframes")
+    check(len(info["loop_closures"]) >= 1, "posegraph: no loop closure")
+    check(closures["3m"]["false"] == 0,
+          f"posegraph: a closure of the 3 m run is false: {closures['3m']}")
+    check(np.isfinite(after_def).all()
+          and default_run["keyframe_error_after_m"] < err_before,
+          "posegraph: the refinement with the default settings is not "
+          f"finite or not below the drift's error: {default_run}")
+    check(default_run["launches_knn_brute_k1"] == len(cand_def) * icp_iters,
+          f"posegraph: {default_run['launches_knn_brute_k1']} knn_brute "
+          f"launches for {len(cand_def)} pairs at the defaults")
+    check(err_after < err_before,
+          f"posegraph: keyframe error {err_after} m after refinement, not "
+          f"below the drift's {err_before} m")
+    check(all(v == 0 for v in ov),
+          f"posegraph: keyframe normals ended with overflow {list(ov)}")
+    check(knn_l == len(cand) * icp_iters,
+          f"posegraph: {knn_l} knn_brute launches for {len(cand)} pairs x "
+          f"{icp_iters} iterations")
+    check(pca_l >= len(refs),
+          f"posegraph: {pca_l} radius_pca launches for {len(refs)} "
+          "reference keyframes")
+
+    # the two kernels at this path's shapes, against their plain versions
+    i, j = cand[0]
+    rel0 = torch.from_numpy(np.linalg.inv(kf_poses[i]) @ kf_poses[j])
+    moved = nt.se3.apply_points(rel0.float(), kf_pos[j])
+    entries = []
+    e = knn_case("loop_closure_k1", moved, kf_mask[j], kf_pos[i], kf_mask[i],
+                 1, role="loop_closure")
+    entries.append(e)
+    m = kf_mask[i]
+    c = (torch.where(m[:, None], kf_pos[i], torch.zeros_like(kf_pos[i])).sum(0)
+         / m.float().sum())
+    q = (kf_pos[i] - c).contiguous()
+    e = pca_case("keyframe_normals", q, m, 1.0, 1024, Ws[0], on_path=True,
+                 rng=rng)
+    e["name"] = "radius_pca[D=3,keyframe]"
+    entries.append(e)
+    counts = dict(map_launch)
+    counts["knn_brute[D=3,k=1,loop_closure]"] = knn_l
+    counts["radius_pca[D=3,keyframe]"] = pca_l
+    return counts, entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1905,6 +2653,7 @@ def main() -> int:
           f"{id_launch}")
     check_graph_launches("identity", id_launch, len(scans))
     check_map_size("identity", rec["final_map_count"], IDENTITY_MAP_POINTS)
+    identity_map_count = rec["final_map_count"]
 
     # ---- p2plane: perturbed priors, the first pose anchors the map
     rng = np.random.default_rng(args.seed + 1)
@@ -1950,6 +2699,11 @@ def main() -> int:
     check_map_size("p2plane_free_running",
                    rec["free_running_final_map_count"], P2PLANE_MAP_POINTS)
     hold_graph_solve(p2_mapper, "p2plane")
+
+    # ---- tracing: the same drive with the overflow sink installed
+    tr_launch = phase_tracing(scans, priors)
+    # ---- checkpoint: the point-to-plane map saved, loaded, localized in
+    phase_checkpoint(p2_mapper, scans, priors)
 
     # ---- online: the point-to-plane config with is_online=True, without a
     # drain between scans, against the offline free-running run
@@ -2011,12 +2765,23 @@ def main() -> int:
                                    "p2point_bound")
     finish_no_radius_phase(mapper, rec, priors, poses)
 
+    # ---- octree leaves with maxPointByNode > 1, the filter zoo, keyframes
+    # and the pose graph
+    ok_launch = phase_octree_k(scans, poses, args.seed, identity_map_count)
+    phase_filters(scans, args.seed)
+    fl_launch = phase_filters_drive(scans, poses)
+    pg_launch, pg_entries = phase_posegraph(args.seed, rng)
+    entries += pg_entries
+
     phase_profile()
 
-    # ---- the kernels line: launches are the main paths' (three configs)
+    # ---- the kernels line: launches are the main paths' (every phase that
+    # drives a Mapper, and the pose graph's refinement)
     for e in entries:
         runs = {"identity": id_launch, "p2plane": p2_launch,
-                "default": df_launch, "p2point": pp_launch}
+                "default": df_launch, "p2point": pp_launch,
+                "tracing": tr_launch, "octree_k": ok_launch,
+                "filters": fl_launch, "posegraph": pg_launch}
         for name, counts in runs.items():
             e[f"launches_{name}"] = counts.get(e["name"], 0)
         e["launches"] = sum(e[f"launches_{name}"] for name in runs)

@@ -31,7 +31,7 @@ from .map import Map
 from .filters import FilterChain, filter_registry
 from .mapper_modules import mapper_module_registry
 from .icp.engine import ICPEngine, ICPResult
-from . import se3, io, convert
+from . import se3, io, convert, slam, utils
 
 __version__ = "0.1.0"
 
@@ -39,5 +39,5 @@ __all__ = [
     "PointBatch", "concatenate", "bucket_capacity", "DrawSource", "Trajectory",
     "CellManager", "RAMCellManager", "HardDriveCellManager", "Mapper", "Map",
     "FilterChain", "filter_registry", "mapper_module_registry", "ICPEngine",
-    "ICPResult", "se3", "io", "convert",
+    "ICPResult", "se3", "io", "convert", "slam", "utils",
 ]

@@ -18,7 +18,7 @@ from .points import PointBatch
 from .ops.nn_sweep import RefPack, pack_rows4
 
 __all__ = ["point_batch_from_numpy", "presort_pack_from_numpy",
-           "mapper_state_from_numpy"]
+           "mapper_state_from_numpy", "keyframes_from_numpy"]
 
 
 def point_batch_from_numpy(positions: np.ndarray, mask: np.ndarray,
@@ -115,3 +115,31 @@ def mapper_state_from_numpy(mapper, map_arrays, ref_arrays=None, pose=None,
     for cid, cell in (cells or {}).items():
         mapper.map.cell_manager.save_cell(
             cid, {k: np.array(v) for k, v in cell.items()})
+
+
+def keyframes_from_numpy(mapper, positions, masks, poses,
+                         cfg: Optional[Dict] = None) -> None:
+    """Put the JAX ``Mapper``'s keyframe store into a port ``Mapper``.
+
+    ``positions [K, cap, D]``, ``masks [K, cap]`` and ``poses [K, D+1, D+1]``
+    are the JAX ``get_keyframes()`` as numpy (its padded stack: each
+    keyframe keeps the common capacity).  ``cfg`` is the JAX store's
+    configuration (``min_distance``, ``max_keyframes``,
+    ``thinning_events``); without it the port's is kept, or
+    ``enable_keyframes()``'s defaults are set."""
+    dev = mapper.device
+    pos = np.asarray(positions, dtype=np.float32)
+    msk = np.asarray(masks, dtype=bool)
+    poses = np.asarray(poses, dtype=np.float32)
+    if pos.ndim != 3 or msk.shape != pos.shape[:2] \
+            or poses.shape[0] != pos.shape[0]:
+        raise ValueError("positions must be [K, cap, D], masks [K, cap] and "
+                         "poses [K, D+1, D+1]")
+    if cfg is not None:
+        mapper._kf_cfg = dict(cfg)
+    elif mapper._kf_cfg is None:
+        mapper.enable_keyframes()
+    mapper._keyframes = [
+        (torch.from_numpy(pos[k].copy()).to(dev),
+         torch.from_numpy(msk[k].copy()).to(dev), poses[k].copy())
+        for k in range(pos.shape[0])]

@@ -17,6 +17,9 @@ Drawing sites on the ported path:
   uniforms in ``[0, 1)``, float32.
 * ``SITE_OCTREE_PRIO`` -- the voxel decimation's random tie-break priorities
   (``samplingMethod: 1``): ``n`` integers in ``[0, 2**15)``.
+* ``SITE_OCTREE_LEAF`` -- the octree decimation with ``maxPointByNode > 1``
+  and ``samplingMethod: 1``: one key per point, ``n`` integers in
+  ``[0, 2**30)``; the smallest key of a leaf picks its representative.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ from typing import Callable, Optional, Union
 import torch
 
 __all__ = ["DrawSource", "resolve_device", "upload", "SITE_RANDOM_SAMPLING",
-           "SITE_OCTREE_PRIO"]
+           "SITE_OCTREE_PRIO", "SITE_OCTREE_LEAF"]
 
 SITE_RANDOM_SAMPLING = "random_sampling"
 SITE_OCTREE_PRIO = "octree_prio15"
+SITE_OCTREE_LEAF = "octree_leaf30"
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
@@ -94,5 +98,13 @@ class DrawSource:
         if self.source is not None:
             return self._from_source(site, n, torch.int64)
         return upload(torch.randint(0, 1 << 15, (n,), generator=self.generator,
+                                    dtype=torch.int64), self.device,
+                      torch.int64)
+
+    def int30(self, site: str, n: int) -> torch.Tensor:
+        """``n`` int64 keys in ``[0, 2**30)`` on the source's device."""
+        if self.source is not None:
+            return self._from_source(site, n, torch.int64)
+        return upload(torch.randint(0, 1 << 30, (n,), generator=self.generator,
                                     dtype=torch.int64), self.device,
                       torch.int64)

@@ -1,28 +1,35 @@
 """DataPointsFilters as vectorized masked passes over PointBatch.
 
-Each filter mirrors a libpointmatcher filter that the bundled configs, the
-default config and the Mapper reach: BoundingBox, DistanceLimit,
-AddDescriptor, SurfaceNormal (radius and k-NN engines),
-CutAtDescriptorThreshold, RandomSampling.  A filter is a
-function ``apply(batch, draws) -> batch`` that only edits masks and
-descriptors; shapes never change.  ``draws`` is a
+Each filter mirrors a libpointmatcher filter, registered under the JAX
+package's name and parameters so that one YAML configures both packages:
+BoundingBox, DistanceLimit, AddDescriptor, SurfaceNormal (radius and k-NN
+engines), CutAtDescriptorThreshold, RandomSampling, MaxPointCount,
+OrientNormals, OctreeGrid, ObservationDirection, MaxDist, MinDist, Shadow,
+VoxelGrid, Identity, RemoveNaN.  A filter is a function
+``apply(batch, draws) -> batch`` that edits masks and descriptors (and, for
+the centroid samplings, positions); shapes never change.  ``draws`` is a
 :class:`~norlab_icp_mapper_tpu_torch.draws.DrawSource`; only filters that
 draw random numbers use it.
 
-The rest of lpm's filter zoo is not ported yet: asking for one by name
-raises the registry's "unknown DataPointsFilter" error.
+Constants reach the card as fills or pinned non-blocking copies
+(``draws.upload``), never as pageable copies: a chain of these filters makes
+no blocking host read.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..draws import DrawSource, SITE_RANDOM_SAMPLING, upload
+from ..draws import (DrawSource, SITE_OCTREE_PRIO, SITE_RANDOM_SAMPLING,
+                     upload)
 from ..points import PointBatch
 from ..registry import Param, ParametrizedPlugin, Registry
 from ..ops.eigen import sym_eig3_smallest, sym_eig2_smallest
+from ..ops.voxel import voxel_select
+from ..utils.tracing import record_overflow
 
 filter_registry = Registry("DataPointsFilter")
 
@@ -295,6 +302,7 @@ class SurfaceNormalFilter(DataPointsFilter):
             batch.positions, batch.positions, batch.mask, batch.mask,
             max_radius=max_dist, q_tile=1024, W=W, min_count=min(k, 3))
         self.last_overflow = overflow
+        record_overflow("surface_normal_sweep", overflow)
         out = batch
         if self.params["keepNormals"] >= 0.5:
             out = out.with_descriptor("normals", normals)
@@ -307,3 +315,211 @@ class SurfaceNormalFilter(DataPointsFilter):
         if self.params["keepEigenValues"] >= 0.5:
             out = out.with_descriptor("eigValues", evals)
         return out
+
+
+@filter_registry.register
+class MaxPointCountFilter(DataPointsFilter):
+    """Keep at most ``maxCount`` points (first ones, in order) --
+    lpm ``MaxPointCountDataPointsFilter``."""
+
+    NAME = "MaxPointCountDataPointsFilter"
+    PARAMS = {
+        "maxCount": Param("maximum number of points", 1000.0, float, 0),
+        "seed": Param("unused (kept for lpm param parity)", 1.0, float, 0),
+    }
+
+    def apply(self, batch, draws=None):
+        rank = torch.cumsum(batch.mask.to(torch.int64), 0) - 1
+        return batch.with_mask(rank < int(self.params["maxCount"]))
+
+
+@filter_registry.register
+class OrientNormalsFilter(DataPointsFilter):
+    """Flip normals toward (or away from) the sensor origin
+    (lpm ``OrientNormalsDataPointsFilter``; assumes cloud in sensor frame)."""
+
+    NAME = "OrientNormalsDataPointsFilter"
+    PARAMS = {
+        "towardCenter": Param("1: orient toward origin", 1.0, float, 0, 1),
+    }
+
+    def apply(self, batch, draws=None):
+        if "normals" not in batch.descriptors:
+            raise ValueError(f"{self.NAME}: cloud has no 'normals' descriptor")
+        n = batch.descriptors["normals"]
+        dot = torch.sum(n * batch.positions, dim=1, keepdim=True)
+        flip = dot > 0 if self.params["towardCenter"] >= 0.5 else dot < 0
+        return batch.with_descriptor("normals", torch.where(flip, -n, n))
+
+
+def _decimate(batch, vox, method, draws):
+    """One representative per voxel (``ops/voxel.py``); method 2 moves it to
+    the voxel's centroid."""
+    prio = None
+    if method == 1:
+        if draws is None:
+            draws = DrawSource(0, batch.device)
+        prio = draws.prio15(SITE_OCTREE_PRIO, batch.capacity)
+    keep, centroid = voxel_select(batch.positions, batch.mask, vox,
+                                  method=method, prio15=prio)
+    out = batch.with_mask(keep)
+    if method == 2:
+        out = out.replace(positions=torch.where(keep[:, None], centroid,
+                                                out.positions))
+    return out
+
+
+@filter_registry.register
+class OctreeGridFilter(DataPointsFilter):
+    """Spatial decimation to one representative per voxel.
+
+    The counterpart of lpm ``OctreeGridDataPointsFilter``: lpm subdivides an
+    octree until leaves are below ``maxSizeByNode``; here a uniform voxel
+    grid of that edge length gives the same decimation density with a sort
+    and a segment pass.  ``samplingMethod``: 0 = first point, 1 = random
+    (draws ``SITE_OCTREE_PRIO``), 2 = centroid, 3 = medoid.  As in the JAX
+    package, ``maxPointByNode`` is accepted and not applied here (the
+    OctreeMapperModule applies it).
+    """
+
+    NAME = "OctreeGridDataPointsFilter"
+    PARAMS = {
+        "buildParallel": Param("lpm threading flag (no-op here)",
+                               1.0, float, 0, 1),
+        "maxPointByNode": Param("stop subdividing below this many points "
+                                "(approximated: voxel size only)", 1.0, float, 1),
+        "maxSizeByNode": Param("leaf/voxel edge length (m); 0 disables",
+                               0.0, float, 0),
+        "samplingMethod": Param("0 first, 1 random, 2 centroid, 3 medoid",
+                                0.0, float, 0, 3),
+    }
+
+    def apply(self, batch, draws=None):
+        vox = self.params["maxSizeByNode"]
+        if vox <= 0.0:
+            return batch
+        return _decimate(batch, vox, int(self.params["samplingMethod"]),
+                         draws)
+
+
+@filter_registry.register
+class ObservationDirectionFilter(DataPointsFilter):
+    """Add unit vectors from each point toward the sensor
+    (lpm ``ObservationDirectionDataPointsFilter``; cloud in sensor frame).
+    The descriptor rotates covariantly under SE(3) like normals."""
+
+    NAME = "ObservationDirectionDataPointsFilter"
+    PARAMS = {
+        "x": Param("sensor x in scan frame", 0.0),
+        "y": Param("sensor y in scan frame", 0.0),
+        "z": Param("sensor z in scan frame", 0.0),
+    }
+
+    def apply(self, batch, draws=None):
+        p = self.params
+        origin = upload([p["x"], p["y"], p["z"]][: batch.dim], batch.device)
+        v = origin[None, :] - batch.positions
+        n = torch.clamp(torch.linalg.norm(v, dim=1, keepdim=True), min=1e-12)
+        return batch.with_descriptor("observationDirections", v / n)
+
+
+def _axis_value(batch, dim):
+    if dim == -1:
+        return torch.linalg.norm(batch.positions, dim=1)
+    return batch.positions[:, dim]
+
+
+@filter_registry.register
+class MaxDistFilter(DataPointsFilter):
+    """Keep points closer than ``maxDist`` (lpm ``MaxDistDataPointsFilter``)."""
+
+    NAME = "MaxDistDataPointsFilter"
+    PARAMS = {
+        "dim": Param("-1 = radial norm, 0/1/2 = axis", -1.0, float, -1, 2),
+        "maxDist": Param("distance threshold (m)", 1.0),
+    }
+
+    def apply(self, batch, draws=None):
+        val = _axis_value(batch, int(self.params["dim"]))
+        return batch.with_mask(val < float(np.float32(self.params["maxDist"])))
+
+
+@filter_registry.register
+class MinDistFilter(DataPointsFilter):
+    """Keep points farther than ``minDist`` (lpm ``MinDistDataPointsFilter``)."""
+
+    NAME = "MinDistDataPointsFilter"
+    PARAMS = {
+        "dim": Param("-1 = radial norm, 0/1/2 = axis", -1.0, float, -1, 2),
+        "minDist": Param("distance threshold (m)", 1.0),
+    }
+
+    def apply(self, batch, draws=None):
+        val = _axis_value(batch, int(self.params["dim"]))
+        return batch.with_mask(val > float(np.float32(self.params["minDist"])))
+
+
+@filter_registry.register
+class ShadowFilter(DataPointsFilter):
+    """Remove shadow points -- points whose normal is nearly orthogonal to
+    the viewing ray (lpm ``ShadowDataPointsFilter``; needs ``normals``,
+    cloud in sensor frame)."""
+
+    NAME = "ShadowDataPointsFilter"
+    PARAMS = {
+        "eps": Param("cos-angle threshold below which a point is shadow",
+                     0.1, float, 0, 1),
+    }
+
+    def apply(self, batch, draws=None):
+        if "normals" not in batch.descriptors:
+            raise ValueError(f"{self.NAME}: cloud has no 'normals' descriptor")
+        pdir = batch.positions / torch.clamp(
+            torch.linalg.norm(batch.positions, dim=1, keepdim=True),
+            min=1e-12)
+        cosang = torch.abs(torch.sum(batch.descriptors["normals"] * pdir,
+                                     dim=1))
+        return batch.with_mask(cosang > float(np.float32(self.params["eps"])))
+
+
+@filter_registry.register
+class VoxelGridFilter(DataPointsFilter):
+    """Centroid-per-voxel downsampling (lpm ``VoxelGridDataPointsFilter``)."""
+
+    NAME = "VoxelGridDataPointsFilter"
+    PARAMS = {
+        "vSizeX": Param("voxel edge x (m)", 0.2, float, 0),
+        "vSizeY": Param("voxel edge y (m) (must equal vSizeX here)", 0.2,
+                        float, 0),
+        "vSizeZ": Param("voxel edge z (m) (must equal vSizeX here)", 0.2,
+                        float, 0),
+        "useCentroid": Param("1: centroid, 0: first point", 1.0, float, 0, 1),
+    }
+
+    def apply(self, batch, draws=None):
+        method = 2 if self.params["useCentroid"] >= 0.5 else 0
+        return _decimate(batch, self.params["vSizeX"], method, draws)
+
+
+@filter_registry.register
+class IdentityFilter(DataPointsFilter):
+    """No-op filter (lpm ``IdentityDataPointsFilter``)."""
+
+    NAME = "IdentityDataPointsFilter"
+    PARAMS = {}
+
+    def apply(self, batch, draws=None):
+        return batch
+
+
+@filter_registry.register
+class RemoveNaNFilter(DataPointsFilter):
+    """Drop points with non-finite coordinates
+    (lpm ``RemoveNaNDataPointsFilter``)."""
+
+    NAME = "RemoveNaNDataPointsFilter"
+    PARAMS = {}
+
+    def apply(self, batch, draws=None):
+        return batch.with_mask(torch.all(torch.isfinite(batch.positions),
+                                         dim=1))

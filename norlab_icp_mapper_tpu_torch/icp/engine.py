@@ -33,8 +33,12 @@ and held in between.
 The returned "correction" has the same meaning as lpm's: ``corrected_pose =
 correction @ estimated_pose``.
 
-Not ported yet (each raises ``NotImplementedError`` by name where a config
-asks for it): the VTKFile/Performance inspectors.
+Inspectors (``inspector: VTKFileInspector`` / ``PerformanceInspector``)
+run the registration one iteration per solve and record every iteration in
+a ``utils.tracing.IterationInspector`` (the VTK one also dumps the moved
+reading): lpm's inspector contract, with its cost, a host read per
+iteration.  The sweep matcher's overflow count is reported to
+``utils.tracing.record_overflow`` as ``icp_matcher_sweep``.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from ..filters.core import FilterChain
 from ..ops import graph_loop
 from ..ops.nn import KnnPack, knn, pack_refs
 from ..ops.nn_sweep import RefPack, presort_ref, sweep_knn
+from ..utils.tracing import IterationInspector, record_overflow
 
 
 def _rematch_every() -> int:
@@ -221,11 +226,16 @@ class ICPEngine:
                 raise ValueError(f"unknown transformation checker '{name}'")
 
         insp = cfg.get("inspector", "NullInspector")
-        iname, _ = _single_key(insp, "inspector")
-        if iname in ("VTKFileInspector", "PerformanceInspector"):
-            raise NotImplementedError(
-                f"icp: inspector '{iname}' is not ported yet")
-        if iname != "NullInspector":
+        iname, ip = _single_key(insp, "inspector")
+        self.inspector: Optional[IterationInspector] = None
+        if iname == "VTKFileInspector":
+            # the engine switches to the inspected solve (one iteration per
+            # solve, the moved reading dumped after each): lpm's tradeoff
+            self.inspector = IterationInspector(
+                dump_dir=str(ip.get("baseFileName", "icp_inspect")))
+        elif iname == "PerformanceInspector":
+            self.inspector = IterationInspector(dump_dir=None)
+        elif iname != "NullInspector":
             raise ValueError(f"unknown inspector '{iname}'")
 
     # -------------------------------------------------------------- state
@@ -312,6 +322,8 @@ class ICPEngine:
             out = _icp_solve(*args, step_filters=step, draws=draws, **cfg)
             self.last_replay = None
         self.last_overflow = out[4]
+        if np.isfinite(self.match_max_dist):
+            record_overflow("icp_matcher_sweep", out[4])
         return SolveOutput(*out[:4])
 
     def solve_config(self) -> Dict[str, Any]:
@@ -350,6 +362,9 @@ class ICPEngine:
         if len(self.reading_filters):
             reading = self.reading_filters.apply(reading, draws)
         ref_normals = self.check_reference(ref)
+        if self.inspector is not None:
+            return self._solve_inspected(reading, ref, ref_normals, pack,
+                                         draws)
         correction, overlap, iters, resid = self.solve(
             reading.positions, reading.mask, ref.positions, ref_normals,
             ref.mask, pack, draws)
@@ -375,6 +390,51 @@ class ICPEngine:
                     f"(maxRotationNorm={max_rot}, maxTranslationNorm="
                     f"{max_trans}) -- lpm aborts registration here")
         return ICPResult(correction, overlap, iters, resid)
+
+    def _solve_inspected(self, reading, ref, ref_normals, pack,
+                         draws) -> ICPResult:
+        """The inspected solve: one single-iteration solve per outer step
+        (the reading moved by the transform so far), the inspector records
+        (and, for VTKFileInspector, dumps) the moved reading after every
+        iteration; the differential checker runs on the host.  The bound
+        checker does not apply here, as in the JAX package."""
+        cfg = dict(self.solve_config(), max_iter=1, diff_checker=None,
+                   bound_checker=None, rematch_every=1)
+        step = (self.reading_step_filters
+                if len(self.reading_step_filters) else None)
+        d = self.dim
+        T = torch.eye(d + 1, dtype=torch.float32,
+                      device=reading.positions.device)
+        overlap = resid = torch.zeros(())
+        min_t, min_r, smooth = self.diff_checker or (0.0, 0.0, 1)
+        hist = []
+        it = 0
+        for it in range(1, self.max_iter + 1):
+            moved = se3.apply_points(T, reading.positions)
+            dT, overlap, _, resid, overflow = _icp_solve(
+                moved, reading.mask, ref.positions, ref_normals, ref.mask,
+                pack, step_filters=step, draws=draws, **cfg)
+            self.last_overflow = overflow
+            if np.isfinite(self.match_max_dist):
+                record_overflow("icp_matcher_sweep", overflow)
+            T = dT.to(T.device) @ T
+            dT_h = dT.cpu().numpy()
+            cloud = None
+            if self.inspector.dump_dir is not None:
+                cloud = PointBatch(se3.apply_points(T, reading.positions),
+                                   reading.mask, {})
+            self.inspector.record(it, float(overlap), float(resid), cloud)
+            if self.minimizer == "IdentityErrorMinimizer":
+                break
+            hist.append((float(np.linalg.norm(dT_h[:d, d])),
+                         _rot_angle_np(dT_h[:d, :d])))
+            if self.diff_checker is not None and len(hist) >= smooth:
+                win = hist[-smooth:]
+                if (sum(h[0] for h in win) / smooth < min_t
+                        and sum(h[1] for h in win) / smooth < min_r):
+                    break
+        self.last_replay = None
+        return ICPResult(T.cpu(), overlap, it, resid)
 
 
 # --------------------------------------------------------------------------

@@ -35,8 +35,13 @@ so ``get_pose()`` waits for the solve and not for the merge; the stepwise
 path merges on a single-worker executor, and the map applies the cell
 events of its rolling window on a background thread.
 
-Not ported yet (each raises ``NotImplementedError`` by name): ``mesh=``,
-keyframes and ``refine_trajectory``.
+Keyframes (``enable_keyframes``): a sensor-frame scan and its corrected
+pose are kept at map updates spaced ``min_distance`` apart, captured at
+harvest on the pipelined loop and in ``_update_map`` on the stepwise one;
+``refine_trajectory`` runs the pose graph of ``slam/pose_graph.py`` over
+them.  Configs with an ICP inspector take the stepwise path.
+
+Not ported yet (raises ``NotImplementedError`` by name): ``mesh=``.
 """
 from __future__ import annotations
 
@@ -195,6 +200,10 @@ class Mapper:
         # the host's waits for the card, by cause
         self.waits = {"pipeline_depth": 0, "capacity": 0, "shrink": 0,
                       "window_events": 0, "remerge": 0, "merge_decision": 0}
+        # keyframes for pose-graph refinement (off unless enable_keyframes()
+        # is called): [(positions, mask, pose)], the clouds on the device
+        self._kf_cfg: Optional[dict] = None
+        self._keyframes: list = []
 
     # ----------------------------------------------------------------- config
     def load_config(self, config: Union[str, Dict[str, Any], None]):
@@ -316,8 +325,10 @@ class Mapper:
         if self._epoch_ns is None:
             self._epoch_ns = int(timestamp_ns)
         # lpm's bound checker THROWS on violation; only the stepwise path
-        # can raise host-side (the engine's __call__ reproduces it)
-        if (self.icp.bound_checker is None
+        # can raise host-side (the engine's __call__ reproduces it); an
+        # inspector records every iteration, which only the stepwise path's
+        # engine call does
+        if (self.icp.bound_checker is None and self.icp.inspector is None
                 and (self._fused_state is not None
                      or (not self.map.first_pose_update
                          and not self.map.is_local_point_cloud_empty()))):
@@ -521,6 +532,8 @@ class Mapper:
             self.map.new_local_available = True
             self.last_time_map_was_updated = entry["stamp_ns"]
             self.last_pose_where_map_was_updated = pose_prev
+            if self._kf_cfg is not None:
+                self._maybe_keyframe(entry["scan"], pose_prev)
         self._win_corr = (
             pose_prev.astype(np.float64)
             @ np.linalg.inv(entry["est"].astype(np.float64))
@@ -632,6 +645,13 @@ class Mapper:
         single-worker executor (the reference's ``std::async``)."""
         self.last_time_map_was_updated = timestamp_ns
         self.last_pose_where_map_was_updated = np.asarray(pose)
+        if self._kf_cfg is not None:
+            # this path merges in the MAP frame; keyframes are stored in the
+            # sensor frame, like the pipelined loop's
+            inv = np.linalg.inv(np.asarray(pose, np.float64)).astype(
+                np.float32)
+            self._maybe_keyframe(se3.apply(torch.from_numpy(inv), scan),
+                                 np.asarray(pose))
         if self.is_online and not self.map.is_local_point_cloud_empty():
             self._map_update_future = self._executor.submit(
                 self.map.update_local_point_cloud, scan, pose,
@@ -641,15 +661,80 @@ class Mapper:
                                               self.draws, scan_valid_hint)
 
     # ------------------------------------------------------------ keyframes
-    def enable_keyframes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Mapper.enable_keyframes (keyframe capture for the pose graph) "
-            "is not ported yet")
+    def enable_keyframes(self, min_distance: float = 1.0,
+                         max_keyframes: int = 256):
+        """Record a keyframe (sensor-frame scan + corrected pose) at map
+        updates spaced at least ``min_distance`` apart: the input of
+        ``refine_trajectory``.  At ``max_keyframes`` the store is thinned
+        (``slam.pose_graph.keyframe_insert``)."""
+        self._kf_cfg = {"min_distance": float(min_distance),
+                        "max_keyframes": int(max_keyframes)}
+        self._keyframes = []
 
-    def refine_trajectory(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Mapper.refine_trajectory (pose-graph refinement) is not ported "
-            "yet")
+    def _maybe_keyframe(self, scan: PointBatch, pose: np.ndarray):
+        from .slam.pose_graph import keyframe_insert
+        keyframe_insert(self._keyframes, self._kf_cfg, scan.positions,
+                        scan.mask, np.asarray(pose, np.float32), self.dim)
+
+    @property
+    def keyframe_thinning_events(self) -> int:
+        """How many times the keyframe store hit ``max_keyframes`` and was
+        distance-thinned (0 = the cap was never reached)."""
+        return (self._kf_cfg or {}).get("thinning_events", 0)
+
+    def get_keyframes(self):
+        """Returns ``(positions [K, cap, D], masks [K, cap], poses [K])``
+        padded to a common capacity (tensors on the mapper's device, numpy
+        poses), or None before the first keyframe."""
+        if not self._keyframes:
+            return None
+        cap = max(int(p.shape[0]) for p, _, _ in self._keyframes)
+        pos, msk, poses = [], [], []
+        for p, m, T in self._keyframes:
+            pad = cap - int(p.shape[0])
+            pos.append(torch.cat([p, p.new_zeros((pad, p.shape[1]))]))
+            msk.append(torch.cat([m, m.new_zeros((pad,))]))
+            poses.append(T)
+        return torch.stack(pos), torch.stack(msk), np.stack(poses)
+
+    def refine_trajectory(self, min_index_gap: int = 5,
+                          max_dist: float = 8.0, min_overlap: float = 0.4,
+                          match_max_dist: float = 2.0,
+                          normal_radius: float = 1.0, icp_iters: int = 10,
+                          gn_iters: int = 10, max_rms: float = 0.3):
+        """Pose-graph refinement over the recorded keyframes: sequential
+        odometry edges + loop-closure registrations of the candidate pairs,
+        dense Gauss-Newton solve (``slam/pose_graph.py``).
+
+        Returns ``(poses_before [K], poses_after [K], info)`` where info
+        holds the closure edges and per-iteration costs.  Requires
+        ``enable_keyframes()`` and >= 3 recorded keyframes."""
+        from .slam.pose_graph import (
+            sequential_edges, detect_loop_closures_batched,
+            optimize_pose_graph)
+        self.drain()
+        kf = self.get_keyframes()
+        if kf is None or kf[2].shape[0] < 3:
+            raise RuntimeError("refine_trajectory: need >= 3 keyframes "
+                               "(call enable_keyframes() before mapping)")
+        kf_pos, kf_mask, poses = kf
+        ei, ej, Z = sequential_edges(poses)
+        w = [1.0] * len(ei)
+        lei, lej, lZ, lw = detect_loop_closures_batched(
+            kf_pos, kf_mask, poses, min_index_gap=min_index_gap,
+            max_dist=max_dist, min_overlap=min_overlap,
+            match_max_dist=match_max_dist, iters=icp_iters,
+            normal_radius=normal_radius, max_rms=max_rms)
+        if lei:
+            ei = list(ei) + lei
+            ej = list(ej) + lej
+            Z = np.concatenate([Z, lZ])
+            w = w + lw
+        opt, costs = optimize_pose_graph(poses, ei, ej, Z, w,
+                                         iters=gn_iters, device=self.device)
+        info = {"loop_closures": list(zip(lei, lej)), "costs": costs,
+                "n_edges": len(ei)}
+        return poses, opt, info
 
     # ------------------------------------------------------------- accessors
     def get_map(self):

@@ -18,11 +18,12 @@ import numpy as np
 import torch
 
 from .. import se3
-from ..draws import DrawSource, SITE_OCTREE_PRIO
+from ..draws import DrawSource, SITE_OCTREE_LEAF, SITE_OCTREE_PRIO
 from ..points import PointBatch, insert
 from ..registry import Param, ParametrizedPlugin, Registry
 from ..ops.nn import nn1
 from ..ops.voxel import voxel_select
+from ..utils.tracing import record_overflow
 
 mapper_module_registry = Registry("MapperModule")
 
@@ -85,7 +86,10 @@ class OctreeMapperModule(MapperModule):
 
     Mirrors ``OctreeMapperModule.cpp`` (concatenate +
     OctreeGridDataPointsFilter in place).  See ``ops/voxel.py`` for why the
-    octree is a uniform voxel grid here.
+    octree is a uniform voxel grid here, and how ``maxPointByNode > 1``
+    coarsens it.  ``samplingMethod: 1`` draws ``SITE_OCTREE_PRIO`` and, with
+    ``maxPointByNode > 1``, ``SITE_OCTREE_LEAF`` (one draw of each per
+    call, over the union's rows).
     """
 
     NAME = "OctreeMapperModule"
@@ -103,15 +107,18 @@ class OctreeMapperModule(MapperModule):
 
     def _select(self, positions, mask, draws):
         method = int(self.params["samplingMethod"])
-        prio = None
+        k = int(self.params["maxPointByNode"])
+        prio = leaf = None
         if method == 1:
             if draws is None:
                 draws = DrawSource(0, positions.device)
-            prio = draws.prio15(SITE_OCTREE_PRIO, positions.shape[0])
+            n = positions.shape[0]
+            prio = draws.prio15(SITE_OCTREE_PRIO, n)
+            if k > 1:
+                leaf = draws.int30(SITE_OCTREE_LEAF, n)
         return method, voxel_select(
             positions, mask, self.params["maxSizeByNode"], method=method,
-            prio15=prio,
-            max_point_by_node=int(self.params["maxPointByNode"]))
+            prio15=prio, max_point_by_node=k, leaf_keys=leaf)
 
     def _decimate(self, batch: PointBatch,
                   draws: Optional[DrawSource] = None) -> PointBatch:
@@ -209,6 +216,7 @@ class DynamicPointsMapperModule(MapperModule):
             p["thresholdDynamic"], p["alpha"], p["beta"],
             p["beamHalfAngle"], p["epsilonA"], p["epsilonD"],
             p["sensorMaxRange"])
+        record_overflow("dynamic_points_sweep", self.last_overflow)
         return map_batch.with_descriptor("probabilityDynamic", new_prob)
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .draws import resolve_device
+from .utils import tracing
 
 __all__ = ["PointBatch", "bucket_capacity", "concatenate", "insert"]
 
@@ -219,7 +220,9 @@ def insert(dst: PointBatch, src: PointBatch, return_dropped: bool = False):
     result has ``dst``'s capacity; the caller sizes ``dst`` with enough
     headroom, and points past capacity are dropped.  With
     ``return_dropped=True`` the number of dropped points comes back as a
-    second value (0-d int64 tensor), so no cap is silent.
+    second value (0-d int64 tensor), so no cap is silent; with an overflow
+    sink installed it is also recorded as ``points_insert``
+    (``utils/tracing.py``).
 
     Descriptor sets are unioned; channels missing on either side zero-fill.
     """
@@ -238,8 +241,11 @@ def insert(dst: PointBatch, src: PointBatch, return_dropped: bool = False):
     desc = {k: _scatter_rows(dst.descriptors[k], tgt, src.descriptors[k])
             for k in names}
     out = PointBatch(pos, mask, desc)
-    if return_dropped:
-        return out, torch.clamp(n + n_src - cap, min=0)
+    if return_dropped or tracing.recording_overflow():
+        dropped = torch.clamp(n + n_src - cap, min=0)
+        tracing.record_overflow("points_insert", dropped)
+        if return_dropped:
+            return out, dropped
     return out
 
 

@@ -137,7 +137,14 @@ def test_voxel_coords_matches_jax(rng):
 
 
 def test_octree_coarsening_is_queued():
-    pts = torch.zeros(8, 3)
-    with pytest.raises(NotImplementedError, match="_octree_select"):
-        tv.voxel_select(pts, torch.ones(8, dtype=torch.bool), 0.15,
-                        max_point_by_node=4)
+    """Once queued, now ported: maxPointByNode > 1 coarsens sparse cells as
+    the JAX package does (the full parity is tests/test_torch_octree_k.py)."""
+    pts = np.array([[0.05, 0.05, 0.05], [0.2, 0.05, 0.05],
+                    [0.05, 0.35, 0.05], [300.0, 3.0, 3.0]], np.float32)
+    mask = np.ones(4, bool)
+    kt, _ = tv.voxel_select(torch.from_numpy(pts), torch.from_numpy(mask),
+                            0.15, max_point_by_node=4)
+    kj, _ = jv.voxel_select(jnp.asarray(pts), jnp.asarray(mask), 0.15,
+                            max_point_by_node=4)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    assert kt.numpy().tolist() == [True, False, False, True]

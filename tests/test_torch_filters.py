@@ -302,9 +302,11 @@ def test_chain_errors_and_queued_features():
     assert len(tf.FilterChain.from_yaml(None)) == 0
     with pytest.raises(ValueError, match="YAML list"):
         tf.FilterChain.from_yaml({"a": 1})
-    # a filter of the zoo that is not ported yet: the registry's usual error
+    # every filter of the zoo is ported; an unknown name gets the
+    # registry's usual error
+    assert len(tf.FilterChain.from_yaml(["OctreeGridDataPointsFilter"])) == 1
     with pytest.raises(KeyError, match="unknown DataPointsFilter"):
-        tf.FilterChain.from_yaml(["OctreeGridDataPointsFilter"])
+        tf.FilterChain.from_yaml(["NopeDataPointsFilter"])
     with pytest.raises(ValueError, match="unknown parameter"):
         tf.filter_registry.create("BoundingBoxDataPointsFilter", {"foo": 1})
     with pytest.raises(ValueError, match="descriptorValues length"):

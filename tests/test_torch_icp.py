@@ -485,8 +485,14 @@ def test_step_filters_without_draws_on_the_sorted_path(rng, monkeypatch):
     ({"inspector": "PerformanceInspector"}, "PerformanceInspector"),
 ])
 def test_queued_features_raise_by_name(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TEngine(cfg)
+    """The inspectors, once queued, are ported: each config builds its
+    IterationInspector (only the VTK one dumps); an unknown name raises."""
+    from norlab_icp_mapper_tpu_torch.utils.tracing import IterationInspector
+    eng = TEngine(cfg)
+    assert isinstance(eng.inspector, IterationInspector)
+    assert (eng.inspector.dump_dir is None) == (match == "PerformanceInspector")
+    with pytest.raises(ValueError, match="unknown inspector"):
+        TEngine({"inspector": match + "X"})
 
 
 def test_matcher_without_max_dist_and_missing_pieces(rng):
@@ -507,6 +513,9 @@ def test_matcher_without_max_dist_and_missing_pieces(rng):
     p2p.set_map(TBatch.from_numpy(pts, device="cpu"))
     with pytest.raises(ValueError, match="requires 'normals'"):
         p2p(TBatch.from_numpy(pts, device="cpu"))
-    # a step filter of the zoo that is not ported: the registry's error
+    # every step filter of the zoo is ported; an unknown one gets the
+    # registry's error
+    assert len(TEngine({"readingStepDataPointsFilters": [
+        "IdentityDataPointsFilter"]}).reading_step_filters) == 1
     with pytest.raises(KeyError, match="unknown DataPointsFilter"):
-        TEngine({"readingStepDataPointsFilters": ["IdentityDataPointsFilter"]})
+        TEngine({"readingStepDataPointsFilters": ["NopeDataPointsFilter"]})

@@ -463,10 +463,12 @@ def test_queued_facade_features_raise_by_name(rng):
     with pytest.raises(NotImplementedError, match="mesh"):
         nt.Mapper(None, mesh=object(), device="cpu")
     mt = nt.Mapper(None, device="cpu")  # the default config loads
-    with pytest.raises(NotImplementedError, match="enable_keyframes"):
-        mt.enable_keyframes()
-    with pytest.raises(NotImplementedError, match="refine_trajectory"):
+    # keyframes are ported (tests/test_torch_pose_graph.py); the pose graph
+    # needs three of them
+    with pytest.raises(RuntimeError, match="need >= 3 keyframes"):
         mt.refine_trajectory()
+    mt.enable_keyframes()
+    assert mt.get_keyframes() is None and mt.keyframe_thinning_events == 0
     # the default config runs: the first scan bootstraps the map (k-NN
     # normals over it), the second registers against it and, 1.5 m on,
     # merges through PointDistanceMapperModule

@@ -275,7 +275,13 @@ def test_registry_and_queued_modules(rng):
     with pytest.raises(ValueError, match="above maximum"):
         tm.mapper_module_registry.create("DynamicPointsMapperModule",
                                          {"alpha": 2.0})
-    octree = tm.mapper_module_registry.create(
-        "OctreeMapperModule", dict(maxSizeByNode=0.5, maxPointByNode=4))
-    with pytest.raises(NotImplementedError, match="_octree_select"):
-        octree.create_map(b, torch.eye(4))
+    # maxPointByNode > 1 is ported: the JAX module's decimation of the same
+    # cloud (tests/test_torch_octree_k.py holds the whole selection)
+    params = dict(maxSizeByNode=0.5, maxPointByNode=4)
+    octree = tm.mapper_module_registry.create("OctreeMapperModule", params)
+    out_j = jm.mapper_module_registry.create(
+        "OctreeMapperModule", params).create_map(
+            JBatch(jnp.asarray(b.positions.numpy()),
+                   jnp.asarray(b.mask.numpy())), jnp.eye(4))
+    out_t = octree.create_map(b, torch.eye(4))
+    np.testing.assert_array_equal(out_t.mask.numpy(), np.asarray(out_j.mask))
