@@ -61,6 +61,19 @@ Phases:
             within 8 m): less keyframe error than the drift, its false
             closures counted against the truth;
             ``knn_brute`` and ``radius_pca`` held at this path's shapes
+  cli       the sequence written to files (VTK, and one PLY, one binary PCD,
+            one CSV; ``icp_odom.csv``) and built into a map by
+            ``build_map.main`` on the card (examples/config.yaml): steady
+            scans under ``"error"``, the loader's threads included; the
+            written map and trajectory bit for bit those of a Mapper fed in
+            memory with the decoded arrays; CLI scans/s beside the
+            in-memory free-running scans/s, parse ms per format
+  distributed  ``DistributedICP`` on a one-rank NCCL group
+            (``multihost.initialize``, ``make_mesh``): identity's map with
+            its normals, one scan moved by a known 6-DoF error; the error
+            undone, the single-device engine's result within 1e-4, the
+            CPU's (gloo) within 1e-5, no blocking read, ``knn_brute`` at
+            this shape against its plain version; the groups destroyed
   profile   device time of the new kernels by name and device launches per
             stage, from ``torch.profiler`` (last: its hooks slow every later
             launch); then the ``phase_split`` line: the SurfaceNormal radius
@@ -2615,6 +2628,446 @@ def phase_posegraph(seed, rng):
     return counts, entries
 
 
+# ---------------------------------------------------------------------------
+# cli: the offline file entry point; distributed: the collective layer
+# ---------------------------------------------------------------------------
+
+CLI_FORMATS = {5: "ply", 9: "pcd", 13: "csv"}  # scan index -> format; else vtk
+CLI_T0_NS = 1_700_000_000_000_000_000
+CLI_SCAN_NS = 100_000_000
+
+
+def rot_to_quat(R):
+    """``(x, y, z, w)`` of a rotation matrix, in float64."""
+    R = np.asarray(R, np.float64)
+    w = np.sqrt(max(0.0, 1 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    x = np.sqrt(max(0.0, 1 + R[0, 0] - R[1, 1] - R[2, 2])) / 2
+    y = np.sqrt(max(0.0, 1 - R[0, 0] + R[1, 1] - R[2, 2])) / 2
+    z = np.sqrt(max(0.0, 1 - R[0, 0] - R[1, 1] + R[2, 2])) / 2
+    return (float(np.copysign(x, R[2, 1] - R[1, 2])),
+            float(np.copysign(y, R[0, 2] - R[2, 0])),
+            float(np.copysign(z, R[1, 0] - R[0, 1])), float(w))
+
+
+def write_cli_dataset(root, scans, poses):
+    """``root/scans/scan_NNN.<ext>`` (VTK, and one PLY, one binary PCD and
+    one CSV) and ``root/icp_odom.csv`` (the poses as ROS-PoseStamped rows,
+    0.1 s apart).  Returns the scan paths."""
+    from norlab_icp_mapper_tpu_torch import io as tio
+    os.makedirs(os.path.join(root, "scans"))
+    paths = []
+    for i, scan in enumerate(scans):
+        ext = CLI_FORMATS.get(i, "vtk")
+        path = os.path.join(root, "scans", f"scan_{i:03d}.{ext}")
+        if ext == "pcd":
+            tio.write_pcd(path, scan, binary=True)
+        else:
+            tio.write_point_cloud(path, scan)
+        paths.append(path)
+    with open(os.path.join(root, "icp_odom.csv"), "w") as f:
+        f.write("header.stamp.sec,header.stamp.nanosec,"
+                "pose.pose.position.x,pose.pose.position.y,"
+                "pose.pose.position.z,pose.pose.orientation.x,"
+                "pose.pose.orientation.y,pose.pose.orientation.z,"
+                "pose.pose.orientation.w\n")
+        for i, P in enumerate(poses):
+            ns = CLI_T0_NS + i * CLI_SCAN_NS
+            vals = [*map(float, P[:3, 3]), *rot_to_quat(P[:3, :3])]
+            f.write(f"{ns // 10**9},{ns % 10**9},"
+                    + ",".join(repr(v) for v in vals) + "\n")
+    return paths
+
+
+def parse_ms_by_format(paths, reps=5):
+    """Median host ms of ``io.read_point_cloud`` on one file per format."""
+    from norlab_icp_mapper_tpu_torch import io as tio
+    out = {}
+    for path in paths:
+        ext = os.path.splitext(path)[1][1:]
+        if ext in out:
+            continue
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            tio.read_point_cloud(path)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[ext] = statistics.median(ts)
+    return out
+
+
+@contextlib.contextmanager
+def cli_checked(tally, state):
+    """``build_map``'s Mapper and ScanLoader, instrumented: from the third
+    scan on, every scan's hand-over, filters and step -- and whatever the
+    loader's threads do meanwhile (the mode is process-wide) -- run under
+    ``torch.cuda.set_sync_debug_mode("error")``; a scan that applies
+    deferred window events or replays an overflowing merge waits by design
+    and runs under ``"warn"`` (see ``no_sync``).  Also records each scan's
+    map capacity, the host ms the loop waits for each scan from the loader
+    (its hand-over included), and the clock at the third scan and at the
+    first drain after the loop."""
+    from norlab_icp_mapper_tpu_torch import build_map
+    import norlab_icp_mapper_tpu_torch as nt
+
+    class Mapper(nt.Mapper):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.caps = []
+            state["mapper"] = self
+
+        def process_input(self, *args, **kwargs):
+            super().process_input(*args, **kwargs)
+            self.caps.append(self.map.local.capacity)
+
+        def drain(self):
+            super().drain()
+            if state.get("loop_done") and "t_drained" not in state:
+                state["t_drained"] = time.perf_counter()
+
+    class Loader(build_map.ScanLoader):
+        def __init__(self, *args, **kwargs):
+            if "workers" in state:  # a variant of the parse threads
+                kwargs["workers"] = state["workers"]
+            super().__init__(*args, **kwargs)
+            state["workers_used"] = kwargs.get("workers")
+
+        def __iter__(self):
+            items = super().__iter__()
+            state["loader_wait_ms"] = waits = []
+            try:
+                for i in range(len(self)):
+                    t0 = time.perf_counter()
+                    item = next(items)  # the hand-over, and any wait for it
+                    waits.append((time.perf_counter() - t0) * 1e3)
+                    if i >= 2:
+                        m = state["mapper"]
+                        window = bool(m._pending_window) \
+                            or m._overflow_remerge is not None
+                        if i == 2:
+                            state["t_steady"] = time.perf_counter()
+                        tally["scans_checked"] += 1
+                        tally["waiting_scans"] += int(window)
+                        torch.cuda.set_sync_debug_mode(
+                            "warn" if window else "error")
+                    yield item
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                state["loop_done"] = True
+
+    saved = build_map.Mapper, build_map.ScanLoader
+    build_map.Mapper, build_map.ScanLoader = Mapper, Loader
+    try:
+        yield
+    finally:
+        build_map.Mapper, build_map.ScanLoader = saved
+
+
+def write_outputs(mapper, out_dir):
+    """What ``build_map.main`` writes, from a mapper driven in memory."""
+    from norlab_icp_mapper_tpu_torch import io as tio
+    os.makedirs(out_dir)
+    cloud = mapper.get_map()
+    tio.write_vtk(os.path.join(out_dir, "map.vtk"), cloud["positions"],
+                  {k: v for k, v in cloud.items() if k != "positions"})
+    mapper.get_trajectory().save(os.path.join(out_dir, "trajectory.vtk"))
+
+
+def phase_cli(scans, poses):
+    """The 18-scan sequence written to files (VTK, one PLY, one binary PCD,
+    one CSV; ``icp_odom.csv``), built into a map by ``build_map.main`` on
+    the card under examples/config.yaml, steady scans under ``"error"``;
+    then a Mapper fed in memory with the arrays the readers decode, without
+    a drain between scans: the written map and trajectory equal bit for
+    bit, and its free-running scans/s beside the CLI's."""
+    import collections
+    import shutil
+    import tempfile
+    import warnings
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch import build_map, io as tio
+    from norlab_icp_mapper_tpu_torch.io import native
+    config = os.path.join(HERE, "examples", "config.yaml")
+    root = tempfile.mkdtemp(prefix="nim_cli_")
+    try:
+        t0 = time.time()
+        paths = write_cli_dataset(root, scans, poses)
+        write_s = time.time() - t0
+        parse_ms = parse_ms_by_format(paths)
+        tally, state = collections.Counter(), {}
+        reset_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with cli_checked(tally, state):
+                cli, per_scan = build_map.main(
+                    root, config, os.path.join(root, "cli"), verbose=False,
+                    device="cuda")
+        launches = read_counts()
+        tally["waiting_scan_syncs"] = sum("synchroniz" in str(w.message)
+                                          for w in caught)
+        n = len(paths)
+        cli_rate = (n - 2) / (state["t_drained"] - state["t_steady"])
+        # the same run with fewer parse threads (the interpreter lock is
+        # shared by the loop and the loader's threads)
+        variants = {}
+        for workers in (1, 4):
+            v_state = {"workers": workers}
+            with cli_checked(collections.Counter(), v_state):
+                build_map.main(root, config,
+                               os.path.join(root, f"cli_w{workers}"),
+                               verbose=False, device="cuda")
+            variants[f"workers_{workers}"] = {
+                "cli_steady_scans_per_s": (n - 2) / (
+                    v_state["t_drained"] - v_state["t_steady"]),
+                "loader_wait_ms_steady_total": sum(
+                    v_state["loader_wait_ms"][2:])}
+
+        # the same scans in memory: the arrays the readers decode, uploaded
+        # before the loop, fed as the CLI feeds them
+        traj = tio.read_trajectory_csv(os.path.join(root, "icp_odom.csv"))
+        decoded = [tio.read_point_cloud(p) for p in paths]
+        mem = nt.Mapper(config, is_3d=True, is_online=False, is_mapping=True,
+                        save_map_cells_on_hard_drive=False, device="cuda")
+        batches = [nt.PointBatch.from_numpy(p, d, device="cuda")
+                   for p, d in decoded]
+        torch.cuda.synchronize()
+        mem_caps = []
+        for i, (b, (pos, _), (pose, stamp)) in enumerate(
+                zip(batches, decoded, traj)):
+            if i == 2:
+                t0 = time.perf_counter()
+            mem.process_input(mem.apply_input_filters(b), pose, stamp,
+                              scan_valid_hint=pos.shape[0])
+            mem_caps.append(mem.map.local.capacity)
+        mem.drain()
+        mem_rate = (n - 2) / (time.perf_counter() - t0)
+        write_outputs(mem, os.path.join(root, "mem"))
+        same = {}
+        for name in ("map.vtk", "trajectory.vtk"):
+            with open(os.path.join(root, "cli", name), "rb") as a, \
+                    open(os.path.join(root, "mem", name), "rb") as b:
+                same[name] = a.read() == b.read()
+            for workers, v in variants.items():
+                with open(os.path.join(root, "mem", name), "rb") as a, \
+                        open(os.path.join(root, f"cli_w{workers[-1]}", name),
+                             "rb") as b:
+                    v[f"{name}_bit_identical"] = a.read() == b.read()
+        got = tio.read_vtk(os.path.join(root, "cli", "map.vtk"))
+        rec = {
+            "phase": "cli", "config": "examples/config.yaml", "scans": n,
+            "formats": {ext: sum(p.endswith(ext) for p in paths)
+                        for ext in ("vtk", "ply", "pcd", "csv")},
+            "native_vtk_parser": native._load() is not None,
+            "write_dataset_s": write_s,
+            "parse_ms_by_format": parse_ms,
+            "cli_workers": state["workers_used"],
+            "cli_steady_scans_per_s": cli_rate,
+            "in_memory_free_running_scans_per_s": mem_rate,
+            "cli_over_in_memory": cli_rate / mem_rate,
+            "cli_host_ms_per_scan": [round(t * 1e3, 2) for t in per_scan],
+            "cli_host_ms_steady_median": statistics.median(per_scan[2:]) * 1e3,
+            "loader_wait_ms_per_scan": [round(t, 2)
+                                        for t in state["loader_wait_ms"]],
+            "loader_wait_ms_steady_total": sum(state["loader_wait_ms"][2:]),
+            "sync_check": dict(tally), "mapper_waits": dict(cli.waits),
+            "map_points": int(got[0].shape[0]),
+            "map_capacity_per_scan_cli": cli.caps,
+            "map_capacity_per_scan_in_memory": mem_caps,
+            "bit_identical": same, "launches": launches,
+            "cli_parse_thread_variants": variants,
+        }
+        emit(rec)
+        mem.shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(tally["scans_checked"] == n - 2,
+          f"cli: {dict(tally)} (not every steady scan was checked)")
+    check(all(same.values()),
+          f"cli: the CLI's outputs differ from the in-memory drive's: {same}"
+          f" (capacities {cli.caps} against {mem_caps})")
+    check_map_size("cli", rec["map_points"], IDENTITY_MAP_POINTS)
+    check(launches.get("sweep_knn[D=3,k=1]", 0) > 0
+          and launches.get("sweep_knn[D=2,k=1]", 0) > 0
+          and launches["radius_pca[D=3]"] > 0,
+          f"cli: a kernel of the path was never launched: {launches}")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+# the reading's error: translation (m), then rotation (rad) -- 5 cm and 2.3
+# degrees in norm
+DIST_XI = np.array([0.04, -0.03, 0.02, 0.01, -0.015, 0.035], np.float32)
+DIST_MAX_DIST = 1.0
+DIST_MAX_ITER = 15
+DIST_CPU_STRIDE = 24  # the CPU call reads every 24th ray (2,048 points)
+
+
+def dist_engine_configs():
+    """The single-device engine set up as ``DistributedICP`` solves:
+    point-to-plane, a counter of ``DIST_MAX_ITER``, 1-NN within
+    ``DIST_MAX_DIST`` -- as an unbounded brute-force matcher with a
+    ``MaxDistOutlierFilter`` (exact), and as the bounded sweep matcher."""
+    base = {"errorMinimizer": "PointToPlaneErrorMinimizer",
+            "transformationCheckers": [{"CounterTransformationChecker": {
+                "maxIterationCount": DIST_MAX_ITER}}]}
+    return {
+        "brute_force_maxdist_filter": dict(
+            base, matcher={"KDTreeMatcher": {"knn": 1}},
+            outlierFilters=[{"MaxDistOutlierFilter": {
+                "maxDist": DIST_MAX_DIST}}]),
+        "sweep_matcher_maxdist": dict(
+            base, matcher={"KDTreeMatcher": {"knn": 1,
+                                             "maxDist": DIST_MAX_DIST}}),
+    }
+
+
+def group_env(port):
+    """torchrun's variables for a one-rank group on this host."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE="1", RANK="0")
+
+
+def phase_distributed(id_mapper, scans, poses):
+    """``DistributedICP`` on a one-rank NCCL group (``multihost.initialize``
+    from torchrun's variables, ``make_mesh``): the identity phase's map with
+    its normals through ``shard_points(n_shards=1)``, one 49,152-ray scan
+    moved by ``DIST_XI``.  Gates: the error undone within 5e-3; within 1e-4
+    of the single-device engine on the card (``dist_engine_configs``,
+    matches recomputed every iteration); within
+    1e-5 of the same call on a one-rank gloo group on the CPU (at every
+    ``DIST_CPU_STRIDE``-th ray: the plain search takes about a minute per
+    iteration on the CPU at full width); no blocking read; ``knn_brute`` at
+    this shape against its plain version.  The groups are destroyed."""
+    import torch.distributed as dist
+    from norlab_icp_mapper_tpu_torch import se3
+    from norlab_icp_mapper_tpu_torch.icp.engine import ICPEngine
+    from norlab_icp_mapper_tpu_torch.ops.nn import knn
+    from norlab_icp_mapper_tpu_torch.parallel import (
+        DistributedICP, make_mesh, multihost, shard_points)
+    from norlab_icp_mapper_tpu_torch.points import PointBatch
+    env_before = {k: os.environ.get(k) for k in (
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+        "NIM_TPU_REMATCH_EVERY")}
+    m = id_mapper.get_map()
+    mp, mn, mm = shard_points(m["positions"], m["normals"],
+                              np.ones(m["positions"].shape[0], bool), 1)
+    T_err = se3.exp_se3(torch.from_numpy(DIST_XI)).numpy()
+    k = len(scans) // 2
+    world = scans[k] @ poses[k][:3, :3].T + poses[k][:3, 3]
+    moved = (world @ T_err[:3, :3].T + T_err[:3, 3]).astype(np.float32)
+    n_read = moved.shape[0]
+    try:
+        group_env(free_port())
+        multihost.initialize()
+        mesh = make_mesh()
+        backend = dist.get_backend()
+        blocks = [multihost.make_global_array(a, mesh) for a in (mp, mn, mm)]
+        read = torch.from_numpy(moved).cuda()
+        rmask = torch.ones(n_read, dtype=torch.bool, device="cuda")
+        icp = DistributedICP(mesh, max_dist=DIST_MAX_DIST,
+                             max_iter=DIST_MAX_ITER)
+        icp.solve(read, rmask, *blocks)  # warm-up: communicator, kernels
+        torch.cuda.synchronize()
+        before = knn.launches_by_shape.get((3, 1), 0)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a.record()
+            T, overlap, rms = icp.solve(read, rmask, *blocks)
+            b.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launches = knn.launches_by_shape.get((3, 1), 0) - before
+        first_ms = a.elapsed_time(b)
+        solve_ms = time_cuda(lambda: icp.solve(read, rmask, *blocks), reps=5)
+        T_card = T.cpu().numpy()
+        # the same reading through the single-device engine on the card,
+        # matches recomputed every iteration: 1-NN by the brute-force
+        # search, pairs beyond maxDist given weight 0 (the same function);
+        # and, for the record, with the sweep matcher, whose capped windows
+        # overflow on the dense hall (there it is not exact)
+        os.environ["NIM_TPU_REMATCH_EVERY"] = "1"
+        ref_pos, ref_nrm, ref_msk = (x[0] for x in blocks)
+        engine = {}
+        for form, icp_cfg in dist_engine_configs().items():
+            eng = ICPEngine(icp_cfg)
+            out = eng.solve(read, rmask, ref_pos, ref_nrm, ref_msk,
+                            eng.build_ref_pack(PointBatch(ref_pos, ref_msk)))
+            engine[form] = {
+                "T_max_abs_diff": float(np.abs(out.correction.cpu().numpy()
+                                               - T_card).max()),
+                "iterations": int(out.iterations),
+                "matcher_overflow_tiles": int(eng.last_overflow)}
+        # the local search at this shape against its plain version
+        p0 = se3.apply_points(T, read)
+        entry = knn_case("distributed_local_nn_k1", p0, rmask, ref_pos,
+                         ref_msk, 1, role="distributed")
+        # the same call at a decimated reading, on the card ...
+        sub = moved[::DIST_CPU_STRIDE]
+        sub_mask = np.ones(sub.shape[0], bool)
+        T_sub = icp.solve(sub, sub_mask, *blocks)[0].cpu().numpy()
+        dist.destroy_process_group()
+        # ... and on a one-rank gloo group on the CPU
+        group_env(free_port())
+        multihost.initialize(device="cpu")
+        cpu_mesh = make_mesh()
+        t0 = time.time()
+        T_cpu = DistributedICP(cpu_mesh, max_dist=DIST_MAX_DIST,
+                               max_iter=DIST_MAX_ITER).solve(
+            sub, sub_mask, mp, mn, mm)[0].numpy()
+        cpu_s = time.time() - t0
+        dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, v in env_before.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+    err = float(np.abs(T_card @ T_err - np.eye(4)).max())
+    cpu_diff = float(np.abs(T_sub - T_cpu).max())
+    rec = {
+        "phase": "distributed", "backend": backend,
+        "world_size": 1, "mesh": str(mesh),
+        "map_points": int(m["positions"].shape[0]),
+        "block_capacity": int(mp.shape[1]), "reading_points": n_read,
+        "T_err_xi": DIST_XI.tolist(), "max_dist": DIST_MAX_DIST,
+        "max_iter": DIST_MAX_ITER,
+        "T_times_T_err_minus_I_max": err, "overlap": float(overlap),
+        "rms": float(rms), "solve_ms": solve_ms,
+        "solve_ms_checked_run": first_ms,
+        "ms_per_iteration": solve_ms / DIST_MAX_ITER,
+        "knn_brute_launches": launches,
+        "engine": engine,
+        "cpu_reading_points": int(sub.shape[0]),
+        "card_vs_cpu_T_max_abs_diff": cpu_diff, "cpu_solve_s": cpu_s,
+        "blocking_reads": 0,  # the checked solve ran under "error"
+    }
+    emit(rec)
+    check(backend == "nccl", f"distributed: backend {backend}, not NCCL")
+    check(err <= 5e-3, f"distributed: T @ T_err is {err} from I (> 5e-3)")
+    exact = engine["brute_force_maxdist_filter"]
+    check(exact["iterations"] == DIST_MAX_ITER
+          and exact["T_max_abs_diff"] <= 1e-4,
+          f"distributed: not within 1e-4 of the single-device engine: "
+          f"{engine}")
+    check(cpu_diff <= 1e-5, f"distributed: card and CPU differ by {cpu_diff}")
+    check(launches == DIST_MAX_ITER,
+          f"distributed: {launches} knn_brute launches for "
+          f"{DIST_MAX_ITER} iterations")
+    return {entry["name"]: launches}, entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2636,6 +3089,7 @@ def main() -> int:
 
     # ---- identity: trusted odometry
     mapper, rec = drive("config.yaml", scans, poses, "identity", strict=True)
+    id_mapper = mapper  # its map feeds the distributed phase
     _, free = free_running("config.yaml", scans, poses)
     rec.update(free)
     emit(rec)
@@ -2773,15 +3227,23 @@ def main() -> int:
     pg_launch, pg_entries = phase_posegraph(args.seed, rng)
     entries += pg_entries
 
+    # ---- the offline file entry point, and DistributedICP on a one-rank
+    # NCCL group
+    cli_launch = phase_cli(scans, poses)
+    ds_launch, ds_entry = phase_distributed(id_mapper, scans, poses)
+    entries.append(ds_entry)
+
     phase_profile()
 
     # ---- the kernels line: launches are the main paths' (every phase that
-    # drives a Mapper, and the pose graph's refinement)
+    # drives a Mapper, the pose graph's refinement, the CLI and the
+    # distributed solve)
     for e in entries:
         runs = {"identity": id_launch, "p2plane": p2_launch,
                 "default": df_launch, "p2point": pp_launch,
                 "tracing": tr_launch, "octree_k": ok_launch,
-                "filters": fl_launch, "posegraph": pg_launch}
+                "filters": fl_launch, "posegraph": pg_launch,
+                "cli": cli_launch, "distributed": ds_launch}
         for name, counts in runs.items():
             e[f"launches_{name}"] = counts.get(e["name"], 0)
         e["launches"] = sum(e[f"launches_{name}"] for name in runs)

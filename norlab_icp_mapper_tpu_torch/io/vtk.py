@@ -44,6 +44,9 @@ _VTK_DTYPES = {
 }
 
 
+_COMMENT = "File created by norlab_icp_mapper_tpu_torch"
+
+
 def _out_dtype(vtk_type: str):
     """Sections declared ``double`` keep f64; all else narrows to f32."""
     return np.float64 if vtk_type == "double" else np.float32
@@ -167,10 +170,17 @@ def read_vtk(path: str) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
 
     Returns ``(positions [n,3] float32, descriptors {name: [n,k]})``.
     Descriptors typed ``double`` in the file stay float64; the rest are
-    float32.  Pure numpy.
+    float32.  Plain-ASCII float32 files go through the native parser
+    (``native.py``) when it is available; this numpy implementation reads
+    the rest (binary files, ``double`` sections) and is its oracle.
     """
     with open(path, "rb") as f:
         raw = f.read()
+    if b"double" not in raw:  # the native reader is float32-only
+        from .native import read_vtk_native
+        native = read_vtk_native(path)
+        if native is not None:
+            return native
     head = raw[:512].upper()
     if b"BINARY" in head.split(b"DATASET", 1)[0]:
         return _read_vtk_binary(raw)
@@ -245,13 +255,19 @@ def read_vtk(path: str) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
 
 def write_vtk(path: str, positions: np.ndarray,
               descriptors: Dict[str, np.ndarray] | None = None,
-              comment: str = "File created by norlab_icp_mapper_tpu_torch") -> None:
+              comment: str = _COMMENT) -> None:
     """Write a legacy ASCII VTK POLYDATA file readable by ParaView and
     libpointmatcher (mirrors the layout of the reference's saved maps).
 
     Descriptors with float64 dtype are written as ``double`` sections and
     round-trip exactly (used by the trajectory's split time channel)."""
     desc_in = descriptors or {}
+    has_f64 = any(np.asarray(v).dtype == np.float64 for v in desc_in.values())
+    if not has_f64 and comment == _COMMENT:
+        # the native writer emits float32 sections and this comment only
+        from .native import write_vtk_native
+        if write_vtk_native(path, positions, descriptors):
+            return
     positions = np.asarray(positions, dtype=np.float32)
     n = positions.shape[0]
     if positions.shape[1] == 2:  # 2-D clouds save with z=0

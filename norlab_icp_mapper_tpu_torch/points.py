@@ -27,7 +27,8 @@ import torch
 from .draws import resolve_device
 from .utils import tracing
 
-__all__ = ["PointBatch", "bucket_capacity", "concatenate", "insert"]
+__all__ = ["PointBatch", "bucket_capacity", "concatenate", "insert",
+           "padded_numpy"]
 
 _MIN_CAPACITY = 256
 
@@ -44,6 +45,31 @@ def bucket_capacity(n: int) -> int:
     p = 1 << (int(n).bit_length() - 1)  # largest power of two <= n
     step = p // 4
     return -(-n // step) * step
+
+
+def padded_numpy(positions, descriptors=None,
+                 capacity: Optional[int] = None):
+    """The host arrays of a PointBatch of ``n`` real points: ``(positions
+    f32[cap, dim], mask bool[cap], {name: f32[cap, k]})``, zero-padded to
+    ``capacity`` (default ``bucket_capacity(n)``)."""
+    positions = np.asarray(positions, dtype=np.float32)
+    n, dim = positions.shape
+    cap = capacity if capacity is not None else bucket_capacity(n)
+    if cap < n:
+        raise ValueError(f"capacity {cap} < point count {n}")
+    pos = np.zeros((cap, dim), dtype=np.float32)
+    pos[:n] = positions
+    mask = np.zeros((cap,), dtype=bool)
+    mask[:n] = True
+    desc = {}
+    for name, v in (descriptors or {}).items():
+        v = np.asarray(v, dtype=np.float32)
+        if v.ndim == 1:
+            v = v[:, None]
+        d = np.zeros((cap, v.shape[1]), dtype=np.float32)
+        d[:n] = v
+        desc[name] = d
+    return pos, mask, desc
 
 
 def _scatter_rows(dst: torch.Tensor, tgt: torch.Tensor,
@@ -95,25 +121,11 @@ class PointBatch:
     ) -> "PointBatch":
         """Build a padded PointBatch from host arrays of n real points."""
         dev = resolve_device(device)
-        positions = np.asarray(positions, dtype=np.float32)
-        n, dim = positions.shape
-        cap = capacity if capacity is not None else bucket_capacity(n)
-        if cap < n:
-            raise ValueError(f"capacity {cap} < point count {n}")
-        pos = np.zeros((cap, dim), dtype=np.float32)
-        pos[:n] = positions
-        mask = np.zeros((cap,), dtype=bool)
-        mask[:n] = True
-        desc = {}
-        for name, v in (descriptors or {}).items():
-            v = np.asarray(v, dtype=np.float32)
-            if v.ndim == 1:
-                v = v[:, None]
-            d = np.zeros((cap, v.shape[1]), dtype=np.float32)
-            d[:n] = v
-            desc[name] = torch.from_numpy(d).to(dev)
+        pos, mask, desc = padded_numpy(positions, descriptors, capacity)
         return PointBatch(torch.from_numpy(pos).to(dev),
-                          torch.from_numpy(mask).to(dev), desc)
+                          torch.from_numpy(mask).to(dev),
+                          {k: torch.from_numpy(v).to(dev)
+                           for k, v in desc.items()})
 
     @staticmethod
     def empty(capacity: int, dim: int = 3,

@@ -25,6 +25,11 @@ PKG = ROOT / "norlab_icp_mapper_tpu_torch"
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys; import norlab_icp_mapper_tpu_torch as m; "
             "import norlab_icp_mapper_tpu_torch.convert; "
+            "import norlab_icp_mapper_tpu_torch.build_map; "
+            "import norlab_icp_mapper_tpu_torch.io.loader; "
+            "import norlab_icp_mapper_tpu_torch.io.native; "
+            "import norlab_icp_mapper_tpu_torch.parallel.distributed; "
+            "import norlab_icp_mapper_tpu_torch.parallel.multihost; "
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'jaxlib' or "
             "k == 'norlab_icp_mapper_tpu' or "
@@ -42,7 +47,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 
 def _program_files():
     files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) \
-        + sorted(PKG.rglob("*.cuh")) + [ROOT / "chip_smoke.py"]
+        + sorted(PKG.rglob("*.cuh")) + sorted(PKG.rglob("*.cpp")) \
+        + [ROOT / "chip_smoke.py"]
     return [f for f in files if "build" not in f.parts]
 
 
@@ -65,6 +71,10 @@ def test_kernel_sources_ship_with_the_package():
         assert (PKG / "csrc" / f"{name}.cu").is_file()
     assert (PKG / "csrc" / "sweep_common.cuh").is_file()
     assert (PKG / "csrc" / "sym_eig.cuh").is_file()
+    assert (PKG / "csrc" / "vtk_fast.cpp").is_file()  # host code, g++
+    manifest = (ROOT / "MANIFEST.in").read_text()
+    assert "recursive-include norlab_icp_mapper_tpu_torch/csrc" in manifest
+    assert "*.cpp" in manifest
     ignore = (ROOT / ".gitignore").read_text().splitlines()
     assert "norlab_icp_mapper_tpu_torch/build/" in ignore
     assert _build.build_dir() == PKG / "build"
