@@ -74,6 +74,21 @@ Phases:
             undone, the single-device engine's result within 1e-4, the
             CPU's (gloo) within 1e-5, no blocking read, ``knn_brute`` at
             this shape against its plain version; the groups destroyed
+  sharded   the sharded per-scan mapper, ``Mapper(config, mesh=...)``: one
+            rank over NCCL (the p2plane config with the p2plane priors,
+            steady scans under ``"error"``, then free-running; with a
+            PointDistanceMapperModule for the insert gate; with the
+            matcher unbounded for the brute-force 1-NN; the identity
+            config): ATE and map size against the single-device port's;
+            the kernels at the sharded shapes (the matcher, the insert
+            gate and the angular 1-NN on a rank's block, the halo PCA of
+            rank 0 of two with its ghosts, the unbounded matcher) against
+            their plain versions; two gloo ranks in two processes on the
+            one card (gloo's collectives on CUDA tensors probed first):
+            the identity map equal to one rank's voxel for voxel, both
+            ranks' replicated state bit for bit, collective time per ICP
+            iteration and halo bytes per merge; device launches per
+            steady scan beside the single-device Mapper's
   profile   device time of the new kernels by name and device launches per
             stage, from ``torch.profiler`` (last: its hooks slow every later
             launch); then the ``phase_split`` line: the SurfaceNormal radius
@@ -3068,6 +3083,593 @@ def phase_distributed(id_mapper, scans, poses):
     return {entry["name"]: launches}, entry
 
 
+# ---------------------------------------------------------------------------
+# sharded: the per-scan mapper with its map split over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+# one rank's halo buffer: a point within 1 m of a 4.8 m cell's edge is
+# about two in three of the hall's map points; 32,768 rows hold a
+# two-rank block's share with room to spare
+SHARDED_OPTIONS = {"halo_capacity": 32_768}
+SHARDED_GATE_SCANS = 10  # scans of the drive with the insert gate
+
+
+def sharded_config(name="config_p2plane.yaml", point_distance=False,
+                   unbounded=False, static=False):
+    """A bundled config as a dict; ``point_distance`` puts a
+    PointDistanceMapperModule (0.15 m) first in the module list,
+    ``unbounded`` drops the matcher's maxDist (the brute-force 1-NN),
+    ``static`` drops DynamicPoints and the cut at its threshold: then no
+    voxel once occupied is emptied, and the occupied voxels do not depend
+    on which point represents a voxel (that follows the layout: the random
+    draws are the rank's, the first point is the block's first slot)."""
+    import yaml
+    with open(os.path.join(HERE, "examples", name)) as fh:
+        cfg = yaml.safe_load(fh)
+    if point_distance:
+        cfg["mapper"]["mapperModule"].insert(0, {
+            "PointDistanceMapperModule": {"minDistNewPoint": 0.15}})
+    if unbounded:
+        cfg["icp"]["matcher"]["KDTreeMatcher"].pop("maxDist")
+    if static:
+        cfg["mapper"]["mapperModule"] = [
+            m for m in cfg["mapper"]["mapperModule"]
+            if "DynamicPointsMapperModule" not in m]
+        cfg["post"] = [f for f in cfg["post"] if
+                       "CutAtDescriptorThresholdDataPointsFilter" not in f]
+    return cfg
+
+
+def sweep_roles(tally):
+    """Wrap the sharded module's ``sweep_knn`` so that the launches made
+    inside it are added to ``tally`` by role (the radius tells matcher,
+    insert gate and angular 1-NN apart); the wrapper's own counter is read
+    before and after every call.  Returns the undo."""
+    from norlab_icp_mapper_tpu_torch.ops import nn_sweep as S
+    from norlab_icp_mapper_tpu_torch.parallel import sharded_map as SM
+    inner = SM.sweep_knn
+
+    def counted(*args, **kwargs):
+        before = S.sweep_knn.launches
+        out = inner(*args, **kwargs)
+        r = kwargs["max_radius"]
+        role = ("insert_gate" if r == 0.15 else
+                "angular" if r < 0.1 else "matcher")
+        tally[role] += S.sweep_knn.launches - before
+        return out
+    SM.sweep_knn = counted
+
+    def undo():
+        SM.sweep_knn = inner
+    return undo
+
+
+def sharded_drive(mesh, config, scans, priors, strict, free=False):
+    """A sharded Mapper (``Mapper(config, mesh=mesh)``) over the sequence:
+    drained after every scan, or (``free``) only at the end.  ``strict``
+    runs each steady scan's filters and step under
+    ``set_sync_debug_mode("error")`` (every read the mapper makes waits on
+    an event and is counted in its ``waits``, by scan)."""
+    import collections
+    import norlab_icp_mapper_tpu_torch as nt
+    mapper = nt.Mapper(config, is_3d=True, device="cuda", seed=0, mesh=mesh,
+                       sharded_options=SHARDED_OPTIONS)
+    batches = [nt.PointBatch.from_numpy(s, capacity=SCAN_CAPACITY,
+                                        device="cuda") for s in scans]
+    roles = collections.Counter()
+    undo = sweep_roles(roles)
+    reset_counts()
+    per_scan = []
+    try:
+        t_free = None
+        for i, (b, prior) in enumerate(zip(batches, priors)):
+            if free and i == 2:
+                mapper.drain()
+                torch.cuda.synchronize()
+                t_free = time.time()
+            t0 = time.time()
+            torch.cuda.set_sync_debug_mode("error" if strict and i >= 2
+                                           else 0)
+            try:
+                filtered = mapper.apply_input_filters(b)
+                mapper.process_input(filtered, prior, int(i * 1e8))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not free:
+                mapper.drain()
+                torch.cuda.synchronize()
+            per_scan.append((time.time() - t0) * 1e3)
+        mapper.drain()
+        torch.cuda.synchronize()
+        t_end = time.time()
+    finally:
+        undo()
+    launches = read_counts()
+    sh = mapper._sharded
+    reads = collections.Counter(
+        f"{i}:{cause}" for i, cause in sh.read_log
+        if cause not in ("drain", "get_pose"))
+    m = mapper.get_map()
+    rec = {
+        "scans": len(scans), "launches": launches,
+        "sweep_launches_by_role": dict(roles),
+        "final_map_count": int(m["positions"].shape[0]),
+        "block_capacity": sh.capacity(),
+        "overflow_totals": dict(sh.overflow_totals),
+        "reads_by_scan_and_cause": dict(reads),
+        "waits": dict(sh.waits),
+        "per_scan_ms": [round(v, 2) for v in per_scan],
+    }
+    if free:
+        rec["free_running_scans_per_s"] = (len(scans) - 2) / (t_end - t_free)
+    else:
+        rec["steady_ms_per_scan"] = statistics.mean(per_scan[2:])
+        rec["scans_per_s"] = 1e3 / rec["steady_ms_per_scan"]
+    return mapper, m, rec
+
+
+def sharded_rank(rank, world, port, out_dir, job):
+    """One rank of the two-rank run on one card: gloo carries CUDA tensors
+    (NCCL refuses two ranks on one card).  Probes the collectives the
+    package uses, then drives each config of ``job`` drained after every
+    scan, timing the reductions inside the ICP solve."""
+    import torch.distributed as dist
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch.parallel import (make_mesh, multihost,
+                                                      sharded_map as SM)
+    torch.cuda.set_device(0)
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
+    out = {}
+    try:
+        dev = torch.device("cuda", 0)
+        probe = {}
+        for name, op in (("all_reduce_sum", dist.ReduceOp.SUM),
+                         ("all_reduce_min", dist.ReduceOp.MIN),
+                         ("all_reduce_max", dist.ReduceOp.MAX)):
+            t = torch.full((4,), float(rank + 1), device=dev)
+            dist.all_reduce(t, op=op)
+            probe[name] = t.cpu().tolist()
+        parts = [torch.empty(3, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.full((3,), float(rank), device=dev))
+        probe["all_gather_list"] = [p.cpu().tolist() for p in parts]
+        t = torch.full((2,), float(rank), device=dev)
+        dist.broadcast(t, src=1)
+        probe["broadcast"] = t.cpu().tolist()
+        out["probe"] = probe
+        mesh = make_mesh(world)
+        clock = {"solve_reduce_s": 0.0, "solve_reductions": 0,
+                 "solve_s": 0.0, "gather_s": 0.0, "gather_bytes": 0}
+        red, gat, solve, merge = (SM.ShardedMapperStep._reduce,
+                                  SM.ShardedMapperStep._gather,
+                                  SM.ShardedMapperStep.icp_solve,
+                                  SM.ShardedMapperStep.merge)
+        in_solve, in_merge = [False], [False]
+
+        def timed_reduce(self, t, op):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = red(self, t, op)
+            torch.cuda.synchronize()
+            if in_solve[0]:
+                clock["solve_reduce_s"] += time.perf_counter() - t0
+                clock["solve_reductions"] += 1
+            return r
+
+        def timed_gather(self, t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = gat(self, t)
+            torch.cuda.synchronize()
+            if in_merge[0]:  # the halo's gathers
+                clock["gather_s"] += time.perf_counter() - t0
+                clock["gather_bytes"] += r.numel() * r.element_size()
+            return r
+
+        def timed_merge(self, *a, **k):
+            in_merge[0] = True
+            try:
+                return merge(self, *a, **k)
+            finally:
+                in_merge[0] = False
+
+        def timed_solve(self, *a, **k):
+            in_solve[0] = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                r = solve(self, *a, **k)
+                torch.cuda.synchronize()
+                return r
+            finally:
+                clock["solve_s"] += time.perf_counter() - t0
+                in_solve[0] = False
+        SM.ShardedMapperStep._reduce = timed_reduce
+        SM.ShardedMapperStep._gather = timed_gather
+        SM.ShardedMapperStep.icp_solve = timed_solve
+        SM.ShardedMapperStep.merge = timed_merge
+        for name, config in job["configs"]:
+            for k in clock:
+                clock[k] = 0
+            mapper = nt.Mapper(config, is_3d=True, device="cuda", seed=0,
+                               mesh=mesh, sharded_options=SHARDED_OPTIONS)
+            t0 = time.time()
+            for i, (s, prior) in enumerate(zip(job["scans"], job[name])):
+                b = nt.PointBatch.from_numpy(s, capacity=SCAN_CAPACITY,
+                                             device=dev)
+                mapper.process_input(mapper.apply_input_filters(b), prior,
+                                     int(i * 1e8))
+                mapper.drain()
+            torch.cuda.synchronize()
+            sh = mapper._sharded
+            g = mapper.get_map()
+            np.savez(os.path.join(out_dir, f"{name}_rank{rank}.npz"),
+                     poses=np.stack(mapper.get_trajectory().poses),
+                     positions=g["positions"], table=sh.table_np,
+                     window=np.asarray(sh.window.w),
+                     cells=np.asarray(sorted(
+                         sh.cell_manager.get_all_cell_ids()), dtype=str),
+                     seconds=time.time() - t0,
+                     halo_overflow=sh.overflow_totals["halo"],
+                     insert_overflow=sh.overflow_totals["insert"],
+                     merges=sh._merges, max_iter=sh.cfg.max_iter,
+                     block_capacity=sh.capacity(),
+                     halo_capacity=sh.cfg.halo_capacity,
+                     **{k: v for k, v in clock.items()})
+        np.savez(os.path.join(out_dir, f"probe_rank{rank}.npz"),
+                 probe=json.dumps(probe))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_two_ranks(scans, poses, priors):
+    """The identity and point-to-plane configs on two gloo ranks in two
+    spawned processes on the one card; returns each rank's arrays."""
+    import tempfile
+    import torch.multiprocessing as tmp
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=os.path.join(HERE, "chiprun_out"))
+    job = {"scans": scans, "identity": poses, "p2plane": priors,
+           "configs": [("identity", sharded_config("config.yaml",
+                                                   static=True)),
+                       ("p2plane", sharded_config())]}
+    t0 = time.time()
+    ctx = tmp.spawn(sharded_rank, args=(2, free_port(), out_dir, job),
+                    nprocs=2, join=False)
+    while not ctx.join(timeout=5):
+        if time.time() - t0 > 300:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            check(False, "sharded: the two gloo ranks did not finish in "
+                         "300 s")
+    res = {n: [dict(np.load(os.path.join(out_dir, f"{n}_rank{r}.npz")))
+               for r in range(2)] for n in ("identity", "p2plane")}
+    probe = json.loads(str(np.load(os.path.join(
+        out_dir, "probe_rank0.npz"))["probe"]))
+    return res, probe, time.time() - t0
+
+
+def split_halo_case(block_pos, block_msk, cfg):
+    """The halo's PCA at a two-rank layout of the final map: rank 0's block
+    as queries, against itself and rank 1's near-edge points (the ghosts,
+    ``halo_capacity`` rows) -- what ``merge_update`` hands ``radius_pca``
+    on rank 0 of two."""
+    from norlab_icp_mapper_tpu_torch.parallel import sharded_map as SM
+    pos = block_pos[block_msk]
+    table = SM.greedy_table(np.bincount(
+        SM._bucket_np(pos.cpu().numpy(), cfg.cell_size, cfg.n_buckets),
+        minlength=cfg.n_buckets), 2)
+    home = torch.from_numpy(table).long().to(pos.device)[
+        SM._bucket_torch(pos, cfg.cell_size, cfg.n_buckets)]
+    cap = block_pos.shape[0]
+    q = torch.zeros((cap, 3), device=pos.device)
+    qm = torch.zeros((cap,), dtype=torch.bool, device=pos.device)
+    mine = pos[home == 0]
+    q[:mine.shape[0]] = mine
+    qm[:mine.shape[0]] = True
+    other = pos[home == 1]
+    cs, r = cfg.cell_size, cfg.normal_radius
+    f = other[:, :2] - torch.floor(other[:, :2] / cs) * cs
+    near = ((f < r) | (f > cs - r)).any(1)
+    H = cfg.halo_capacity
+    ghosts = torch.zeros((2 * H, 3), device=pos.device)
+    gm = torch.zeros((2 * H,), dtype=torch.bool, device=pos.device)
+    g = other[near][:H]
+    ghosts[H:H + g.shape[0]] = g  # rank 1's slice; rank 0's own is masked
+    gm[H:H + g.shape[0]] = True
+    return (q, qm, torch.cat([q, ghosts]), torch.cat([qm, gm]),
+            int(near.sum()))
+
+
+def sharded_pca_entry(name, query, qmask, ref, rmask, radius, q_tile, W):
+    """The halo PCA's two-cloud shape: held against its plain version by
+    ``pca_two_clouds_case``, then timed (launch alone, plain search) with
+    its bound from this run's windows and hits."""
+    from norlab_icp_mapper_tpu_torch.ops import nn_sweep as S
+    from norlab_icp_mapper_tpu_torch.ops import pca as P
+    pca_two_clouds_case(name, query, qmask, ref, rmask, radius, q_tile, W)
+    before = P.radius_pca.launches
+    r = float(np.float32(radius))
+    r2 = float(np.float32(radius * radius))
+    qp = S.presort_ref(query, qmask)
+    rp = S.presort_ref(ref, rmask, center=qp.center)
+    Wc = min(W, ref.shape[0])
+    k = P._stats_kernel(qp, rp, r, r2, q_tile, Wc, 0)
+    p = P._stats_plain(qp, rp, r, r2, q_tile, Wc, 0)
+    err = float((k.cov - p.cov).abs().max())
+    ms = time_cuda(lambda: P._stats_kernel(qp, rp, r, r2, q_tile, Wc, 0))
+    plain_ms = time_cuda(lambda: P._stats_plain(qp, rp, r, r2, q_tile, Wc,
+                                                0), reps=2, warmup=1)
+    P.radius_pca.launches = before
+    n = query.shape[0]
+    n_valid = int(qmask.sum())
+    hits = int(k.cnt.sum())
+    # the windows the kernel walks: per block of its queries, the span of
+    # sorted references, times the block's valid queries; the distance
+    # test runs over every such pair, the moments over the hits
+    pad = -(-n // q_tile) * q_tile - n
+    qx_s = S.pad_rows(qp.ref_xs, pad, S.BIG)
+    qm_s = S.pad_rows(qp.ref_mask_s, pad, False)
+    r_t = torch.tensor(r, dtype=torch.float32, device=query.device)
+    _, _, _, _, b_start, b_end = S.sweep_windows(
+        qx_s, qm_s, rp, r_t, q_tile, Wc, P._BLOCK_QUERIES)
+    per_block = qm_s.view(-1, P._BLOCK_QUERIES).sum(1)
+    pairs = int(((b_end - b_start).long() * per_block).sum())
+    flops = pairs * 3 * 3 + hits * (1 + 3 + 12)
+    bytes_moved = (n_valid + int(rmask.sum())) * 16 + n * 4 * (1 + 3 + 9
+                                                               + 3 + 3)
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": f"{name}_timed",
+          "kernel": "radius_pca", "N": n, "M": ref.shape[0],
+          "valid_queries": n_valid, "valid_refs": int(rmask.sum()),
+          "kernel_ms": ms, "plain_ms": plain_ms, "hits": hits,
+          "pairs": pairs, "max_abs_err_cov": err,
+          "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms})
+    return {"name": "radius_pca[D=3,sharded_halo]", "route": "cuda",
+            "source": "norlab_icp_mapper_tpu_torch/csrc/radius_pca.cu",
+            "replaces": "ops/pca.py:136", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def phase_sharded(scans, poses, priors, p2_rec):
+    """The sharded per-scan mapper (``Mapper(config, mesh=...)``).
+
+    One rank over NCCL (``multihost.initialize``, ``make_mesh``): the
+    point-to-plane config over the hall with the p2plane phase's priors,
+    drained after every scan with the steady scans under ``"error"``, then
+    free-running (also under ``"error"``); the same with a PointDistanceMapperModule (the insert
+    gate's sweep); with the matcher's maxDist dropped (the brute-force
+    1-NN), four scans; and the identity config without DynamicPoints and
+    its cut.  Gates: ATE within max(1.5x, +2 mm) of the single-device
+    port's, map within 5 % of its,
+    no insert or evict overflow (the halo's is reported: on one rank the
+    own slice is masked, so it cannot change a normal), every kernel of the
+    path launched.  Then the kernels at the sharded shapes against their
+    plain versions, and two gloo ranks in two processes on the one card:
+    the identity map's occupied voxels equal one rank's, both ranks hold
+    the same poses, table, window and cell ids bit for bit, and the
+    collectives' time per ICP iteration and the halo's bytes per merge.
+    The profiler (last) counts device launches per steady scan beside the
+    single-device Mapper's."""
+    import torch.distributed as dist
+    from norlab_icp_mapper_tpu_torch.mapper_modules.core import \
+        _spherical_angles
+    from norlab_icp_mapper_tpu_torch.parallel import make_mesh, multihost
+    from norlab_icp_mapper_tpu_torch import se3
+    env_before = {k: os.environ.get(k) for k in (
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    entries, runs = [], {}
+    try:
+        group_env(free_port())
+        multihost.initialize()
+        mesh = make_mesh()
+        backend = dist.get_backend()
+        mapper, m, rec = sharded_drive(mesh, sharded_config(), scans, priors,
+                                       strict=True)
+        est = mapper.get_trajectory().poses
+        rec.update({"phase": "sharded", "drive": "p2plane_step_locked",
+                    "backend": backend, "world_size": 1,
+                    "recovered_ate_m": ate(est[1:], poses[1:]),
+                    "single_device_ate_m": p2_rec["recovered_ate_m"],
+                    "single_device_final_map_count":
+                        p2_rec["final_map_count"],
+                    "single_device_scans_per_s": p2_rec["scans_per_s"],
+                    "single_device_free_running_scans_per_s":
+                        p2_rec["free_running_scans_per_s"]})
+        _, _, free = sharded_drive(mesh, sharded_config(), scans, priors,
+                                   strict=True, free=True)
+        rec["free_running_scans_per_s"] = free["free_running_scans_per_s"]
+        # free-running, the count mirrors are read every HARVEST_EVERY
+        # scans (event waits, under "error" too): where, and why
+        rec["free_running_reads_by_scan_and_cause"] = \
+            free["reads_by_scan_and_cause"]
+        emit(rec)
+        main_launch = rec["launches"]
+        ate_gate = max(1.5 * p2_rec["recovered_ate_m"],
+                       p2_rec["recovered_ate_m"] + 0.002)
+        check(backend == "nccl", f"sharded: backend {backend}, not NCCL")
+        check(rec["recovered_ate_m"] <= ate_gate,
+              f"sharded: ATE {rec['recovered_ate_m']} m above {ate_gate}")
+        n_single = p2_rec["final_map_count"]
+        check(abs(rec["final_map_count"] - n_single) <= 0.05 * n_single,
+              f"sharded: map of {rec['final_map_count']} points, not within "
+              f"5 % of the single-device port's {n_single}")
+        ov = rec["overflow_totals"]
+        check(ov["insert"] == 0 and ov["evict"] == 0,
+              f"sharded: insert or evict overflow: {ov}")
+        check(main_launch.get("sweep_knn[D=3,k=1]", 0) > 0
+              and main_launch.get("sweep_knn[D=2,k=1]", 0) > 0
+              and main_launch["radius_pca[D=3]"] > 0
+              and main_launch["sym_eig[D=3]"] > 0,
+              f"sharded: a kernel of the path was never launched: "
+              f"{main_launch}")
+
+        # the insert gate: a PointDistanceMapperModule in front
+        n_g = SHARDED_GATE_SCANS
+        gmapper, gm, grec = sharded_drive(
+            mesh, sharded_config(point_distance=True), scans[:n_g],
+            priors[:n_g], strict=True)
+        grec.update({"phase": "sharded", "drive": "p2plane_insert_gate",
+                     "recovered_ate_m": ate(
+                         gmapper.get_trajectory().poses[1:], poses[1:n_g])})
+        emit(grec)
+        check(grec["sweep_launches_by_role"].get("insert_gate", 0) > 0,
+              f"sharded: the insert gate's sweep never launched: {grec}")
+        check(grec["overflow_totals"]["insert"] == 0,
+              "sharded: insert overflow with the gate")
+        # the unbounded matcher: knn_brute on the block
+        umapper, _, urec = sharded_drive(
+            mesh, sharded_config(unbounded=True), scans[:4], priors[:4],
+            strict=False)
+        urec.update({"phase": "sharded", "drive": "p2plane_unbounded"})
+        emit(urec)
+        check(urec["launches"].get("knn_brute[D=3,k=1]", 0) > 0,
+              f"sharded: knn_brute never launched: {urec['launches']}")
+        # identity over one rank: the layout the two-rank run must equal
+        imapper, im, irec = sharded_drive(
+            mesh, sharded_config("config.yaml", static=True), scans, poses,
+            strict=True)
+        irec.update({"phase": "sharded", "drive": "identity"})
+        emit(irec)
+        id_vox = {tuple(v) for v in np.floor(
+            im["positions"] / np.float32(0.15)).astype(np.int64)}
+
+        # ---- the kernels at the sharded shapes
+        sh = mapper._sharded
+        bpos, bmsk = sh.state["pos"], sh.state["msk"]
+        k = len(scans) // 2
+        sc = scans[k]
+        scan_t = torch.from_numpy(sc).cuda()
+        smask = torch.ones(sc.shape[0], dtype=torch.bool, device="cuda")
+        pose_k = torch.from_numpy(est[k]).cuda()
+        scan_m = se3.apply_points(pose_k, scan_t)
+        e = sweep_case("sharded_matcher_k1", scan_m, smask, bpos, bmsk, 1,
+                       2.0, 1024, 8192, 112)
+        e["name"] = "sweep_knn[D=3,k=1,sharded_matcher]"
+        entries.append(e)
+        e = sweep_case("sharded_insert_gate", scan_m, smask, bpos, bmsk, 1,
+                       0.15, 1024, 8192, 112)
+        e["name"] = "sweep_knn[D=3,k=1,sharded_insert_gate]"
+        entries.append(e)
+        inv = se3.inverse(pose_k)
+        map_s = se3.apply_points(inv, bpos)
+        map_ang = _spherical_angles(map_s, torch.linalg.norm(map_s, dim=1))
+        scan_ang = _spherical_angles(scan_t, torch.linalg.norm(scan_t, dim=1))
+        e = sweep_case("sharded_dp_angular", map_ang, bmsk, scan_ang, smask,
+                       1, 0.02, 1024, 1024, 112)
+        e["name"] = "sweep_knn[D=2,k=1,sharded_angular]"
+        entries.append(e)
+        q, qm, ref, rm, n_near = split_halo_case(bpos, bmsk, sh.cfg)
+        # rank 0 of two searches with 512-query tiles (block_q_tile)
+        entries.append(sharded_pca_entry("sharded_halo_pca", q, qm, ref, rm,
+                                         sh.cfg.normal_radius, 512, 2048))
+        ub = umapper._sharded
+        e = knn_case("sharded_unbounded_matcher", scan_m, smask,
+                     ub.state["pos"], ub.state["msk"], 1, role="sharded")
+        entries.append(e)
+        runs = {
+            "sweep_knn[D=3,k=1,sharded_matcher]":
+                rec["sweep_launches_by_role"].get("matcher", 0),
+            "sweep_knn[D=3,k=1,sharded_insert_gate]":
+                grec["sweep_launches_by_role"].get("insert_gate", 0),
+            "sweep_knn[D=2,k=1,sharded_angular]":
+                rec["sweep_launches_by_role"].get("angular", 0),
+            "radius_pca[D=3,sharded_halo]": main_launch["radius_pca[D=3]"],
+            e["name"]: urec["launches"].get("knn_brute[D=3,k=1]", 0),
+            # the eigensolve of the halo covariances
+            "sym_eig[D=3]": main_launch["sym_eig[D=3]"],
+        }
+
+        # ---- two gloo ranks on the one card
+        two, probe, two_s = sharded_two_ranks(scans, poses, priors)
+        r0, r1 = two["p2plane"]
+        same = all(np.array_equal(a[key], b[key])
+                   for a, b in (two["identity"], two["p2plane"])
+                   for key in ("poses", "positions", "table", "window",
+                               "cells"))
+        vox2 = {tuple(v) for v in np.floor(two["identity"][0]["positions"]
+                                           / np.float32(0.15)).astype(
+            np.int64)}
+        d_pose = float(np.abs(r0["poses"] - np.stack(est)).max())
+        iters = int(r0["merges"])  # one merge per scan after the first
+        n_it = (len(scans) - 1) * int(r0["max_iter"])
+        trec = {
+            "phase": "sharded", "drive": "two_gloo_ranks_on_one_card",
+            "probe": probe, "seconds": two_s,
+            "ranks_bit_identical": same,
+            "identity_voxels_equal_one_rank": vox2 == id_vox,
+            "identity_voxels": [len(id_vox), len(vox2)],
+            "p2plane_max_pose_diff_to_one_rank": d_pose,
+            "p2plane_recovered_ate_m": ate(list(r0["poses"][1:]),
+                                           poses[1:]),
+            "p2plane_seconds_per_rank": [float(r["seconds"])
+                                         for r in (r0, r1)],
+            "p2plane_merges": iters,
+            "halo_overflow": int(r0["halo_overflow"]),
+            "halo_bytes_per_merge_per_rank":
+                float(r0["gather_bytes"]) / max(iters, 1),
+            "solve_reductions_per_iteration":
+                float(r0["solve_reductions"]) / n_it,
+            "solve_reduce_ms_per_iteration":
+                1e3 * float(r0["solve_reduce_s"]) / n_it,
+            "solve_ms_per_iteration": 1e3 * float(r0["solve_s"]) / n_it,
+            "block_capacity": int(r0["block_capacity"]),
+        }
+        emit(trec)
+        want = {"all_reduce_sum": [3.0] * 4, "all_reduce_min": [1.0] * 4,
+                "all_reduce_max": [2.0] * 4,
+                "all_gather_list": [[0.0] * 3, [1.0] * 3],
+                "broadcast": [1.0, 1.0]}
+        check(probe == want, f"sharded: gloo on CUDA tensors: {probe}")
+        check(same, "sharded: the two ranks' replicated state differs")
+        check(vox2 == id_vox, "sharded: two ranks' identity map differs from "
+                              "one rank's")
+        check(trec["halo_overflow"] == 0,
+              "sharded: the halo overflowed on two ranks")
+        check(trec["p2plane_recovered_ate_m"] <= ate_gate,
+              f"sharded: two ranks' ATE {trec['p2plane_recovered_ate_m']}")
+
+        # ---- device launches per steady scan (the profiler's hooks stay
+        # with the process, so this comes last, before the profile phase)
+        import norlab_icp_mapper_tpu_torch as nt
+        feeds = {}
+        for label, kw in (("single_device", {}),
+                          ("sharded", {"mesh": mesh,
+                                       "sharded_options": SHARDED_OPTIONS})):
+            mm = nt.Mapper(sharded_config(), is_3d=True, device="cuda",
+                           seed=0, **kw)
+            it = iter(range(len(scans)))
+
+            def feed(mm=mm, it=it):
+                i = next(it)
+                b = nt.PointBatch.from_numpy(scans[i], capacity=SCAN_CAPACITY,
+                                             device="cuda")
+                mm.process_input(mm.apply_input_filters(b), priors[i],
+                                 int(i * 1e8))
+                mm.drain()
+            for _ in range(3):
+                feed()
+            feeds[label] = count_device_launches(feed)
+        emit({"phase": "sharded", "drive": "device_launches_per_scan",
+              "counted_by": "torch.profiler device events, one steady scan "
+                            "drained (the fourth and fifth scans)",
+              **feeds})
+        dist.destroy_process_group()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, v in env_before.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+    return runs, entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3131,6 +3733,7 @@ def main() -> int:
                                 / sum(its[1:])),
     })
     p2_launch = rec["launches"]
+    p2_rec = rec
     emit(rec)
     check_map(mapper, rec, len(scans))
     check(rec_ate < prior_ate / 3.0,
@@ -3232,18 +3835,22 @@ def main() -> int:
     cli_launch = phase_cli(scans, poses)
     ds_launch, ds_entry = phase_distributed(id_mapper, scans, poses)
     entries.append(ds_entry)
+    # ---- the sharded per-scan mapper (one NCCL rank; two gloo ranks)
+    sh_launch, sh_entries = phase_sharded(scans, poses, priors, p2_rec)
+    entries += sh_entries
 
     phase_profile()
 
     # ---- the kernels line: launches are the main paths' (every phase that
-    # drives a Mapper, the pose graph's refinement, the CLI and the
-    # distributed solve)
+    # drives a Mapper, the pose graph's refinement, the CLI, the
+    # distributed solve and the sharded mapper)
     for e in entries:
         runs = {"identity": id_launch, "p2plane": p2_launch,
                 "default": df_launch, "p2point": pp_launch,
                 "tracing": tr_launch, "octree_k": ok_launch,
                 "filters": fl_launch, "posegraph": pg_launch,
-                "cli": cli_launch, "distributed": ds_launch}
+                "cli": cli_launch, "distributed": ds_launch,
+                "sharded": sh_launch}
         for name, counts in runs.items():
             e[f"launches_{name}"] = counts.get(e["name"], 0)
         e["launches"] = sum(e[f"launches_{name}"] for name in runs)

@@ -18,7 +18,8 @@ from .points import PointBatch
 from .ops.nn_sweep import RefPack, pack_rows4
 
 __all__ = ["point_batch_from_numpy", "presort_pack_from_numpy",
-           "mapper_state_from_numpy", "keyframes_from_numpy"]
+           "mapper_state_from_numpy", "keyframes_from_numpy",
+           "sharded_state_from_numpy"]
 
 
 def point_batch_from_numpy(positions: np.ndarray, mask: np.ndarray,
@@ -143,3 +144,28 @@ def keyframes_from_numpy(mapper, positions, masks, poses,
         (torch.from_numpy(pos[k].copy()).to(dev),
          torch.from_numpy(msk[k].copy()).to(dev), poses[k].copy())
         for k in range(pos.shape[0])]
+
+
+def sharded_state_from_numpy(blocks: Dict[str, np.ndarray], table,
+                             mesh, device=None):
+    """The JAX ``ShardedMapper``'s state, as numpy, into the port's: the
+    ``[S, cap, ...]`` blocks (``pos``, ``nrm``, ``msk``, ``prob``) and the
+    bucket table every rank passes whole.  Returns ``(state, table)``:
+    this rank's block (block ``rank`` of the mesh's axis) and the table as
+    tensors on ``device`` (default the card; see
+    ``parallel.sharded_map.shard_device``).  Assign them to a
+    ``ShardedMapper``'s ``state`` / ``table`` (and ``table_np``)."""
+    from .parallel.sharded_map import shard_device
+    from .draws import upload
+    dev = shard_device(mesh, device)
+    axis = mesh.mesh_dim_names[0]
+    S = mesh.size(0)
+    r = mesh.get_local_rank(axis)
+    if np.asarray(blocks["pos"]).shape[0] != S:
+        raise ValueError(f"{np.asarray(blocks['pos']).shape[0]} blocks for "
+                         f"{S} ranks")
+    dtypes = {"pos": torch.float32, "nrm": torch.float32,
+              "msk": torch.bool, "prob": torch.float32}
+    state = {k: upload(np.ascontiguousarray(np.asarray(blocks[k])[r]), dev,
+                       dt) for k, dt in dtypes.items()}
+    return state, upload(np.asarray(table, np.int64), dev, torch.int64)

@@ -41,7 +41,10 @@ harvest on the pipelined loop and in ``_update_map`` on the stepwise one;
 ``refine_trajectory`` runs the pose graph of ``slam/pose_graph.py`` over
 them.  Configs with an ICP inspector take the stepwise path.
 
-Not ported yet (raises ``NotImplementedError`` by name): ``mesh=``.
+With ``mesh`` (``parallel.make_mesh()``), the same config drives the
+sharded backend (``parallel/sharded_map.py``): the map is split over the
+ranks of the mesh and every per-scan pass runs on each rank's block with
+``torch.distributed`` collectives between them.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ import torch
 import yaml
 
 from . import se3
-from .draws import DrawSource, resolve_device
+from .draws import DrawSource, resolve_device, upload
 from .points import PointBatch, bucket_capacity
 from .filters.core import FilterChain, filter_registry
 from .fused import FusedScanStep, PhaseTimer
@@ -126,7 +129,8 @@ class Mapper:
                  device: Union[str, torch.device, None] = "cuda",
                  draw_source: Optional[Callable[[str, int],
                                                 torch.Tensor]] = None,
-                 mesh=None):
+                 mesh=None,
+                 sharded_options: Optional[Dict[str, Any]] = None):
         """``device`` is where the clouds live and the kernels run; it
         defaults to the card and raises if there is none (pass
         ``device="cpu"`` to run on the CPU, as the tests do).
@@ -134,12 +138,21 @@ class Mapper:
         ``seed`` seeds the generator behind every random draw (random
         sampling, octree tie-breaks); ``draw_source(site, n) -> Tensor``
         replaces that generator with the caller's own draws (see
-        ``draws.py``)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Mapper(mesh=...) (the multi-device sharded map) is not "
-                "ported yet")
+        ``draws.py``).
+
+        With ``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``) the map
+        is sharded over the mesh's ranks (``parallel.ShardedMapper``);
+        ``device`` is this rank's (under NCCL it must be the rank's card)
+        and ``sharded_options`` overrides the sharded-only knobs
+        (cell_size, halo_capacity, ...)."""
         self.device = resolve_device(device)
+        if mesh is not None:
+            from .parallel.sharded_map import shard_device
+            if not hasattr(mesh, "get_group"):
+                raise TypeError(f"mesh must be a DeviceMesh "
+                                f"(parallel.make_mesh()), not {mesh!r}")
+            self.device = shard_device(mesh, self.device)
+        self.seed = int(seed)
         self.is_3d = is_3d
         self.dim = 3 if is_3d else 2
         self.is_online = is_online
@@ -204,6 +217,14 @@ class Mapper:
         # is called): [(positions, mask, pose)], the clouds on the device
         self._kf_cfg: Optional[dict] = None
         self._keyframes: list = []
+
+        # the sharded backend: the same parsed config, the map over the mesh
+        self._sharded = None
+        if mesh is not None:
+            from .parallel.sharded_map import ShardedMapper
+            self._sharded = ShardedMapper.from_mapper(self, mesh,
+                                                      sharded_options)
+            self.trajectory = self._sharded.trajectory
 
     # ----------------------------------------------------------------- config
     def load_config(self, config: Union[str, Dict[str, Any], None]):
@@ -322,6 +343,10 @@ class Mapper:
         """
         estimated_pose = np.asarray(estimated_pose, dtype=np.float32)
         scan = filtered_scan_in_sensor_frame.to(self.device)
+        if self._sharded is not None:
+            self._process_input_sharded(scan, estimated_pose, timestamp_ns,
+                                        scan_valid_hint)
+            return
         if self._epoch_ns is None:
             self._epoch_ns = int(timestamp_ns)
         # lpm's bound checker THROWS on violation; only the stepwise path
@@ -363,6 +388,28 @@ class Mapper:
 
         self.pose = np.asarray(corrected, dtype=np.float32)
         self.trajectory.add_pose(self._pose, timestamp_ns)
+
+    def _process_input_sharded(self, scan: PointBatch,
+                               estimated_pose: np.ndarray, timestamp_ns: int,
+                               scan_valid_hint: Optional[int]) -> None:
+        read_mask = None
+        if len(self.icp.reading_filters):
+            # readingDataPointsFilters: applied once per registration to the
+            # reading only, the merged scan stays unfiltered.  The
+            # single-device engine gets the reading in the MAP frame, so the
+            # mask is computed on the transformed scan (frame-sensitive
+            # filters agree across backends); position-editing reading
+            # filters are refused at construction
+            scan_m = se3.apply(upload(estimated_pose, self.device), scan)
+            read_mask = self.icp.reading_filters.apply(scan_m,
+                                                       self.draws).mask
+        sh = self._sharded
+        sh.process_input(scan, estimated_pose, timestamp_ns=int(timestamp_ns),
+                         is_mapping=self.is_mapping, read_mask=read_mask,
+                         scan_valid_hint=scan_valid_hint)
+        if sh._overlap is not None:
+            self.overlap = sh._overlap
+            self.last_iterations = sh.last_iterations
 
     # ---------------------------------------------------- the pipelined loop
     def _process_input_fused(self, scan: PointBatch,
@@ -602,6 +649,11 @@ class Mapper:
         """Flush the pipelined loop: wait for every scan in flight and
         bring the host bookkeeping (pose, map count, rolling window) up to
         date.  Call before reading final results."""
+        if self._sharded is not None:
+            self._sharded.drain()
+            self.overlap = float(self.overlap)
+            self.last_iterations = int(self.last_iterations or 0)
+            return
         self._drain_fused()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -666,7 +718,13 @@ class Mapper:
         """Record a keyframe (sensor-frame scan + corrected pose) at map
         updates spaced at least ``min_distance`` apart: the input of
         ``refine_trajectory``.  At ``max_keyframes`` the store is thinned
-        (``slam.pose_graph.keyframe_insert``)."""
+        (``slam.pose_graph.keyframe_insert``).  With a mesh the sharded
+        mapper captures them and its store is shared here."""
+        if self._sharded is not None:
+            self._sharded.enable_keyframes(min_distance, max_keyframes)
+            self._keyframes = self._sharded._keyframes  # the same list
+            self._kf_cfg = self._sharded._kf_cfg
+            return
         self._kf_cfg = {"min_distance": float(min_distance),
                         "max_keyframes": int(max_keyframes)}
         self._keyframes = []
@@ -739,14 +797,23 @@ class Mapper:
     # ------------------------------------------------------------- accessors
     def get_map(self):
         self.drain()
+        if self._sharded is not None:
+            return self._sharded.get_map()
         return self.map.get_global_point_cloud()
 
     def set_map(self, new_map):
         self.drain()
-        self.map.set_global_point_cloud(new_map)
+        if self._sharded is not None:
+            self._sharded.set_map(new_map)
+        else:
+            self.map.set_global_point_cloud(new_map)
         self.trajectory.clear()
 
     def get_new_local_map(self):
+        if self._sharded is not None:
+            # consume-once gather of the ranks' blocks: a map-sized
+            # transfer, for publishing cadence
+            return self._sharded.get_new_local_point_cloud()
         self._drain_fused()
         return self.map.get_new_local_point_cloud()
 
@@ -762,6 +829,9 @@ class Mapper:
     def get_pose(self) -> Optional[np.ndarray]:
         """The latest corrected pose; for a scan still in flight this waits
         for its solve (not for its merge)."""
+        if self._sharded is not None:
+            return (None if self._sharded.pose is None
+                    else self._sharded.get_pose())
         if self._live is not None:
             return self._live.get()["pose"].numpy().copy()
         return None if self._pose is None else np.asarray(self._pose)
@@ -777,6 +847,8 @@ class Mapper:
 
     def shutdown(self):
         self.drain()
+        if self._sharded is not None:
+            return
         if self._map_update_future is not None:
             self._map_update_future.result()
             self._map_update_future = None

@@ -460,7 +460,9 @@ def test_queued_facade_features_raise_by_name(rng):
     assert mo.map._update_thread is not None
     mo.shutdown()
     assert mo.map._update_thread is None
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the sharded backend is ported (tests/test_torch_sharded_*.py); a
+    # mesh must be a DeviceMesh
+    with pytest.raises(TypeError, match="mesh"):
         nt.Mapper(None, mesh=object(), device="cpu")
     mt = nt.Mapper(None, device="cpu")  # the default config loads
     # keyframes are ported (tests/test_torch_pose_graph.py); the pose graph

@@ -30,6 +30,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "import norlab_icp_mapper_tpu_torch.io.native; "
             "import norlab_icp_mapper_tpu_torch.parallel.distributed; "
             "import norlab_icp_mapper_tpu_torch.parallel.multihost; "
+            "import norlab_icp_mapper_tpu_torch.parallel.sharded_map; "
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'jaxlib' or "
             "k == 'norlab_icp_mapper_tpu' or "
