@@ -15,7 +15,10 @@ Phases:
   card      the card's name and power limit, torch and CUDA versions
   build     compiles the kernels (all sources in parallel), prints the seconds
   kernels   each kernel against its plain version at the path's shapes, and
-            the WHILE node that runs the ICP loop against a Python loop
+            the WHILE node that runs the ICP loop against a Python loop;
+            ``kabsch`` (well conditioned, reflection, rank 2, near identity,
+            2-D; bit for bit, and against a float64 SVD) and ``philox``
+            (49,152 rows and ragged lengths, bit for bit)
   identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence,
             drained after every scan; the steady-state scans' filters and
             step run under ``torch.cuda.set_sync_debug_mode("error")``
@@ -33,7 +36,14 @@ Phases:
             with its own ``default_graph_vs_loop``
   p2point   the default config with the point-to-point minimizer, median and
             surface-normal outlier filters and a step filter, 6 scans; then
-            4 scans with a bound checker added (the stepwise path)
+            4 scans with a bound checker added (the stepwise path); every
+            solve a graph replay (Kabsch and the step draws on the card),
+            the steady solves without a synchronising call, the last one
+            against its Python loop bit for bit
+  p2plane_step  the p2plane config with a random step filter (prob 0.9),
+            18 scans, steady scans under ``"error"``: graph against loop
+            bit for bit, the last solve on the card against the CPU's with
+            the same keyed draws (1e-4), ATE below a third of the prior's
   tracing   the p2plane config again with the overflow sink installed
             (``utils.tracing``): steady scans without a blocking read, and
             ``overflow_totals()`` equal to the sum of the counts the passes
@@ -76,8 +86,12 @@ Phases:
             this shape against its plain version; the groups destroyed
   sharded   the sharded per-scan mapper, ``Mapper(config, mesh=...)``: one
             rank over NCCL (the p2plane config with the p2plane priors,
-            steady scans under ``"error"``, then free-running; with a
-            PointDistanceMapperModule for the insert gate; with the
+            steady scans under ``"error"``, then free-running, beside the
+            masked Python loop's numbers; the solve's graph -- all 40 masked iterations with
+            their NCCL reductions, no WHILE node -- against the same
+            iterations run eagerly, bit for bit; with a
+            PointDistanceMapperModule for the insert gate; point-to-point
+            without a counted read; with the
             matcher unbounded for the brute-force 1-NN; the identity
             config): ATE and map size against the single-device port's;
             the kernels at the sharded shapes (the matcher, the insert
@@ -132,6 +146,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1330,7 +1345,179 @@ def phase_kernels(scans, poses, seed):
     exact_cases(rng, dev)
     entries += knn_cases(scans, poses, rng, dev)
     entries.append(while_node_case())
+    entries.append(kabsch_case(rng))
+    entries.append(philox_case())
     return entries
+
+
+KABSCH_CASES = ("conditioned", "reflection", "rank2", "near_identity",
+                "2d")
+
+
+def kabsch_moments(rng, kind):
+    """Seeded weighted pairs of one kind, as many as the reading's capacity,
+    reduced to ``(H, mu_p, mu_q)`` in float32 the way the point-to-point
+    minimizer reduces them (centred cross-covariance, weighted means)."""
+    dim = 2 if kind == "2d" else 3
+    n = SCAN_CAPACITY
+    p = rng.normal(size=(n, dim)) * np.array([8.0, 4.0, 1.5][:dim]) + 20.0
+    if kind == "rank2":
+        p[:, 2] = 20.0  # a planar pair set
+    angle = 1e-4 if kind == "near_identity" else 0.3
+    if dim == 2:
+        R = np.array([[np.cos(angle), -np.sin(angle)],
+                      [np.sin(angle), np.cos(angle)]])
+    else:
+        a = rng.normal(size=3)
+        a /= np.linalg.norm(a)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        R = np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+    q = p @ R.T + rng.normal(size=(n, dim)) * 0.005 + 0.2
+    if kind == "reflection":
+        q[:, -1] = 2 * q[:, -1].mean() - q[:, -1]  # det(H) < 0
+    w = rng.uniform(0.2, 1.0, size=n)
+    mu_p = (w[:, None] * p).sum(0) / w.sum()
+    mu_q = (w[:, None] * q).sum(0) / w.sum()
+    H = ((p - mu_p) * w[:, None]).T @ (q - mu_q)
+    return [torch.from_numpy(x.astype(np.float32)) for x in (H, mu_p, mu_q)]
+
+
+def kabsch_ops(dim: int) -> int:
+    """f32 operations of one problem, counted from ``csrc/kabsch.cu``: in
+    3-D the 4x4 build (10), ``SWEEPS`` sweeps of six rotations of 55 each
+    (angle 17, off-diagonal 12, the two diagonal entries 2, V 24), the
+    choice of the column (15), its normalisation (12), R (30) and t (18);
+    in 2-D the angle's pair, its norm and quotients (9) and t (8)."""
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import SWEEPS
+    if dim == 2:
+        return 17
+    return 10 + SWEEPS * 6 * 55 + 15 + 12 + 30 + 18
+
+
+def kabsch_case(rng):
+    """``csrc/kabsch.cu`` against ``kabsch_plain`` on the same card tensors
+    (the same operations in the same order: bit for bit), and both against
+    the CPU's plain version and a float64 SVD, for each kind of ``H``; then
+    the launch timed beside the plain version and ``torch.linalg.svd`` +
+    ``det`` (the library's form, which makes the host wait)."""
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch, kabsch_plain
+    dev = torch.device("cuda")
+    before = kabsch.launches
+    worst, timed = 0.0, None
+    for kind in KABSCH_CASES:
+        H, mp, mq = kabsch_moments(rng, kind)
+        dim = H.shape[0]
+        Hc, mpc, mqc = H.to(dev), mp.to(dev), mq.to(dev)
+        k = kabsch(Hc, mpc, mqc)
+        pc = kabsch_plain(Hc, mpc, mqc)
+        cpu = kabsch_plain(H, mp, mq)
+        torch.cuda.synchronize()
+        Hd = H.double().numpy()
+        U, _, Vt = np.linalg.svd(Hd)
+        D = np.eye(dim)
+        D[-1, -1] = np.linalg.det(Vt.T @ U.T)
+        R64 = Vt.T @ D @ U.T
+        err = float((k - pc).abs().max())
+        worst = max(worst, err)
+        kh = k.cpu().numpy()
+        rec = {"phase": "kernel_case", "case": f"kabsch_{kind}",
+               "kernel": "kabsch", "dim": dim, "max_abs_err_plain": err,
+               "bit_identical_plain": bool(torch.equal(k, pc)),
+               "max_abs_diff_cpu_plain": float((k.cpu() - cpu).abs().max()),
+               "R_max_abs_diff_svd_float64": float(
+                   np.abs(kh[:dim, :dim] - R64).max()),
+               "det_R_minus_1": float(np.linalg.det(
+                   kh[:dim, :dim].astype(np.float64)) - 1.0)}
+        emit(rec)
+        check(err == 0.0, f"kabsch {kind}: kernel differs from its plain "
+                          f"version by {err} (the same operations)")
+        check(rec["R_max_abs_diff_svd_float64"] < 1e-5
+              and abs(rec["det_R_minus_1"]) < 1e-5,
+              f"kabsch {kind}: R off the float64 SVD's: {rec}")
+        if kind == "conditioned":
+            timed = (Hc, mpc, mqc)
+
+    def library():
+        U, _, Vt = torch.linalg.svd(timed[0])
+        return torch.linalg.det(Vt.T @ U.T)
+    ms = time_cuda(lambda: kabsch(*timed))
+    plain_ms = time_cuda(lambda: kabsch_plain(*timed), reps=3, warmup=1)
+    library_ms = time_cuda(library)
+    kabsch.launches = before
+    bytes_moved = (9 + 3 + 3 + 16) * 4
+    ops_ms = kabsch_ops(3) / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": "kabsch_timed", "kernel": "kabsch",
+          "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms_svd_det": library_ms, "f32_operations": kabsch_ops(3),
+          "bytes": bytes_moved, "bound_ops_ms": ops_ms,
+          "bound_bytes_ms": bytes_ms})
+    return {"name": "kabsch", "route": "cuda",
+            "source": "norlab_icp_mapper_tpu_torch/csrc/kabsch.cu",
+            "replaces": "icp/engine.py:554", "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+PHILOX_INT_OPS_PER_BLOCK = 10 * 10 + 12  # rounds x (2 hi, 2 lo, 4 xor,
+# 2 key adds) + 4 shifts, 4 conversions, 4 scalings
+
+
+def philox_case():
+    """``csrc/philox.cu`` against ``philox_plain`` bit for bit, at the
+    reading's capacity and at a ragged length, on the card and against the
+    CPU's plain version; timed beside the plain version and ``torch.rand``
+    on a CUDA generator (the library's uniforms, which are other numbers).
+    Bound: the floats written against the integer operations at the f32
+    rate (the guide's table gives no int32 rate)."""
+    from norlab_icp_mapper_tpu_torch.ops.philox import (philox_plain,
+                                                        philox_uniform)
+    dev = torch.device("cuda")
+    before = philox_uniform.launches
+    solve = torch.tensor(17, dtype=torch.int64, device=dev)
+    it = torch.tensor(9, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for n in (SCAN_CAPACITY, SCAN_CAPACITY - 5, 1001):
+        k = philox_uniform(1234, solve, it, 0, n)
+        p = philox_plain(1234, solve, it, 0, n)
+        c = philox_plain(1234, solve.cpu(), it.cpu(), 0, n)
+        err = float((k - p).abs().max())
+        worst = max(worst, err)
+        mean = float(k.mean())
+        rec = {"phase": "kernel_case", "case": f"philox_n{n}",
+               "kernel": "philox", "bit_identical_plain": bool(
+                   torch.equal(k, p)),
+               "bit_identical_cpu": bool(torch.equal(k.cpu(), c)),
+               "mean": mean, "min": float(k.min()), "max": float(k.max())}
+        emit(rec)
+        check(rec["bit_identical_plain"] and rec["bit_identical_cpu"],
+              f"philox n={n}: kernel differs from its plain version: {rec}")
+        check(abs(mean - 0.5) < 6 * (1 / 12 / n) ** 0.5,
+              f"philox n={n}: mean {mean} of uniforms")
+    n = SCAN_CAPACITY
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ms = time_cuda(lambda: philox_uniform(1234, solve, it, 0, n))
+    plain_ms = time_cuda(lambda: philox_plain(1234, solve, it, 0, n))
+    library_ms = time_cuda(lambda: torch.rand(n, device=dev, generator=gen))
+    philox_uniform.launches = before
+    blocks = (n + 3) // 4
+    bytes_moved = n * 4 + 8 + 4
+    ops_ms = blocks * PHILOX_INT_OPS_PER_BLOCK / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": "philox_timed", "kernel": "philox",
+          "n": n, "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms_torch_rand": library_ms, "bound_ops_ms": ops_ms,
+          "bound_bytes_ms": bytes_ms})
+    return {"name": "philox", "route": "cuda",
+            "source": "norlab_icp_mapper_tpu_torch/csrc/philox.cu",
+            "replaces": "icp/engine.py:585", "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
 
 
 def while_node_case():
@@ -1443,6 +1630,8 @@ def reset_counts():
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch
+    from norlab_icp_mapper_tpu_torch.ops.philox import philox_uniform
     sweep_knn.launches = 0
     sweep_knn.launches_by_shape = {}
     radius_pca.launches = 0
@@ -1450,6 +1639,9 @@ def reset_counts():
     knn.launches = 0
     knn.launches_by_shape = {}
     graph_loop.replay.launches = 0
+    for f in (kabsch, philox_uniform):
+        f.launches = 0
+        f.launches_by_shape = {}
 
 
 def read_counts():
@@ -1458,6 +1650,8 @@ def read_counts():
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch
+    from norlab_icp_mapper_tpu_torch.ops.philox import philox_uniform
     out = {f"sweep_knn[D={d},k={k}]": v
            for (d, k), v in sweep_knn.launches_by_shape.items()}
     out.update({f"knn_brute[D={d},k={k}]": v
@@ -1467,6 +1661,8 @@ def read_counts():
     out["sweep_knn"] = sweep_knn.launches
     out["knn_brute"] = knn.launches
     out["graph_while"] = graph_loop.replay.launches  # solve graph replays
+    out["kabsch"] = kabsch.launches
+    out["philox"] = philox_uniform.launches
     return out
 
 
@@ -1583,9 +1779,9 @@ DEFAULT_MAP_POINTS = 101_404
 def hold_graph_solve(mapper, phase):
     """The solve of the phase's last scan, replayed from the graph the
     phase captured, against the same body under the Python loop that reads
-    ``done`` before each iteration, on the same card tensors: T bit for bit
-    and the same iterations (the masked iterations after the stop change
-    nothing)."""
+    ``done`` before each iteration, on the same card tensors (and, with
+    step filters, the same keyed draws): T bit for bit and the same
+    iterations (the masked iterations after the stop change nothing)."""
     from norlab_icp_mapper_tpu_torch import se3
     from norlab_icp_mapper_tpu_torch.icp import engine
     icp = mapper.icp
@@ -1597,8 +1793,13 @@ def hold_graph_solve(mapper, phase):
     args = (reading.positions, reading.mask, ref.positions,
             icp.check_reference(ref), ref.mask, icp._ref_pack)
     captures = icp.graph_captures
-    g = icp.solve(*args)
-    loop = engine._icp_solve(*args, **icp.solve_config())
+    # step filters draw keyed by the mapper's seed and the solve index the
+    # graph's replay drew with; the loop is handed the same
+    step = icp.reading_step_filters if len(icp.reading_step_filters) else None
+    g = icp.solve(*args, draws=mapper.draws)
+    loop = engine._icp_solve(*args, step_filters=step, draws=mapper.draws,
+                             solve_index=icp.last_solve_index,
+                             **icp.solve_config())
     it_g, it_l = int(g.iterations), int(loop[2])
     same = bool(torch.equal(g.correction, loop[0]))
     emit({"phase": f"{phase}_graph_vs_loop", "iterations_graph": it_g,
@@ -1716,13 +1917,48 @@ def count_k1_launches(obj, method, tally, key):
     setattr(obj, method, counted)
 
 
-def drive_default(scans, priors, config=None, phase="default"):
+def strict_solves(mapper, steady, tally):
+    """Run every ICP solve of the steady scans (``steady[0]`` true) under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and count the synchronising
+    calls it makes in ``tally``: ``solve_syncs`` for a solve that replayed a
+    graph it had, ``capture_solve_syncs`` for one that captured a new graph
+    (the map grew)."""
+    import warnings
+    icp = mapper.icp
+    inner = icp.solve
+
+    def checked(*args, **kwargs):
+        if not steady[0]:
+            return inner(*args, **kwargs)
+        captures = icp.graph_captures
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = inner(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        n = sum("synchroniz" in str(w.message) for w in caught)
+        kind = "capture_solve" if icp.graph_captures != captures else "solve"
+        tally[f"{kind}s_checked"] += 1
+        tally[f"{kind}_syncs"] += n
+        return out
+    icp.solve = checked
+
+
+def drive_default(scans, priors, config=None, phase="default",
+                  strict_solve=False):
     """``Mapper(config)`` on a path without a radius (matcher without
     maxDist, k-NN normals as reference filter, PointDistanceMapperModule),
-    full width; ``None`` is the default config."""
+    full width; ``None`` is the default config.  ``strict_solve`` counts the
+    synchronising calls of the steady scans' solves (``strict_solves``)."""
+    import collections
     import norlab_icp_mapper_tpu_torch as nt
     mapper = nt.Mapper(config, is_3d=True, device="cuda", seed=0)
     mapper.timer.enabled = True
+    steady, syncs = [False], collections.Counter()
+    if strict_solve:
+        strict_solves(mapper, steady, syncs)
     reset_counts()
     # who launched the k = 1 searches: counter readings around the
     # PointDistance module and around the ICP solve
@@ -1732,15 +1968,21 @@ def drive_default(scans, priors, config=None, phase="default"):
     count_k1_launches(mapper.map.modules[0], "update_map", k1_by,
                       "point_distance")
     # the matcher's launches: counted in the solve by the Python loop, and
-    # at harvest for a solve graph's replay (its wrappers counted at
-    # capture, and the iterations are known once the mirrors land)
+    # where a solve graph's replay is counted once its iterations are known
+    # (at harvest on the fused path, in ``ICPEngine.__call__`` on the
+    # stepwise one): ``GraphReplay.count``
+    from norlab_icp_mapper_tpu_torch.icp import engine
     count_k1_launches(mapper.icp, "solve", k1_by, "matcher")
-    count_k1_launches(mapper, "_harvest_entry", k1_by, "matcher")
+    replay_count = engine.GraphReplay.count
+    holder = types.SimpleNamespace(count=replay_count)
+    count_k1_launches(holder, "count", k1_by, "matcher")
+    engine.GraphReplay.count = holder.count
     per_scan, counts, caps, valid, iters, merged = [], [], [], [], [], []
     last_merge = None
     warmup = {}
     for i, (scan, prior) in enumerate(zip(scans, priors)):
         mapper.drain()
+        steady[0] = i >= 2
         t0 = time.time()
         batch = nt.PointBatch.from_numpy(scan, capacity=SCAN_CAPACITY,
                                          device="cuda")
@@ -1761,6 +2003,7 @@ def drive_default(scans, priors, config=None, phase="default"):
         if i == 1:
             warmup = mapper.timer.totals()
     mapper.last_scan = (filtered, prior)
+    engine.GraphReplay.count = replay_count
     launches = read_counts()
     launches["knn_brute[D=3,k=10,normals]"] = \
         launches.get("knn_brute[D=3,k=10]", 0)
@@ -1783,6 +2026,8 @@ def drive_default(scans, priors, config=None, phase="default"):
         "graph_captures": mapper.icp.graph_captures,
         "mapper_waits": dict(mapper.waits),
     }
+    if strict_solve:
+        rec["solve_sync_check"] = dict(syncs)
     return mapper, rec, last_merge
 
 
@@ -1930,6 +2175,94 @@ def finish_no_radius_phase(mapper, rec, priors, poses):
     check(pd + mt == launch.get("knn_brute[D=3,k=1]", 0),
           f"{phase}: k = 1 launches outside PointDistance and the solve: "
           f"{launch}")
+
+
+def check_solve_sync(rec):
+    """Every steady scan's solve was checked, and those that replayed a
+    graph they had made no synchronising call (today's gate; before the
+    solve was a graph for point-to-point, one read per iteration)."""
+    sc, phase = rec["solve_sync_check"], rec["phase"]
+    checked = sc.get("solves_checked", 0) + sc.get("capture_solves_checked",
+                                                   0)
+    check(checked == rec["scans"] - 2,
+          f"{phase}: {sc} (not every steady solve was checked)")
+    check(sc.get("solve_syncs", 0) == 0,
+          f"{phase}: a steady solve synchronised: {sc}")
+
+
+STEP_PROB = 0.9  # the step filter's keep probability in p2plane_step
+
+
+def hold_card_vs_cpu(mapper, phase):
+    """The last scan's solve on the card (a graph replay) against the same
+    solve on the CPU (the Python loop, plain versions of the kernels) on
+    copies of the same inputs, drawing the same keyed step draws (seed and
+    solve index): T within 1e-4."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch import se3
+    from norlab_icp_mapper_tpu_torch.icp import engine
+    icp = mapper.icp
+    filtered, prior = mapper.last_scan
+    reading = se3.apply(torch.as_tensor(prior, device="cuda"), filtered)
+    if len(icp.reading_filters):
+        reading = icp.reading_filters._apply_impl(reading, mapper.draws)
+    ref = icp._ref
+    args = (reading.positions, reading.mask, ref.positions,
+            icp.check_reference(ref), ref.mask, icp._ref_pack)
+    g = icp.solve(*args, draws=mapper.draws)
+    index = icp.last_solve_index
+    cpu = [t.cpu() for t in args[:5]]
+    pack = icp.build_ref_pack(nt.PointBatch(cpu[2], cpu[4], {}))
+    t0 = time.time()
+    out = engine._icp_solve(
+        *cpu, pack, step_filters=icp.reading_step_filters,
+        draws=nt.DrawSource(mapper.draws.seed, "cpu"), solve_index=index,
+        **icp.solve_config())
+    cpu_s = time.time() - t0
+    diff = float((g.correction.cpu() - out[0]).abs().max())
+    emit({"phase": f"{phase}_card_vs_cpu", "solve_index": index,
+          "iterations_card": int(g.iterations), "iterations_cpu": int(out[2]),
+          "T_max_abs_diff": diff, "overlap_card": float(g.overlap),
+          "overlap_cpu": float(out[1]), "cpu_solve_s": cpu_s})
+    check(diff <= 1e-4, f"{phase}: the card's solve differs from the CPU's "
+                        f"by {diff} (> 1e-4)")
+
+
+def phase_step_filters(scans, priors, poses):
+    """``examples/config_p2plane.yaml`` with a random step filter
+    (``RandomSamplingDataPointsFilter``, prob 0.9) in memory, over the 18
+    scans step-locked, steady scans under ``"error"``: every solve one
+    graph replay whose step draws are keyed on the card; the last solve
+    against its Python loop (bit for bit) and against the CPU's (1e-4);
+    ATE below a third of the prior's."""
+    cfg = config_dict("config_p2plane.yaml")
+    cfg["icp"]["readingStepDataPointsFilters"] = [
+        {"RandomSamplingDataPointsFilter": {"prob": STEP_PROB}}]
+    mapper, rec = drive("config_p2plane.yaml", scans, priors,
+                        "p2plane_step", strict=True, config=cfg)
+    est = mapper.get_trajectory().poses
+    prior_ate = ate(priors[1:], poses[1:])
+    its = rec["icp_iterations"][1:]
+    rec.update({"step_filters": cfg["icp"]["readingStepDataPointsFilters"],
+                "prior_ate_m": prior_ate,
+                "recovered_ate_m": ate(est[1:], poses[1:]),
+                "mean_icp_iterations": statistics.mean(its),
+                "ms_per_gn_iteration": (rec["phase_ms_steady_total"]["solve"]
+                                        / sum(its[1:]))})
+    emit(rec)
+    launch = rec["launches"]
+    check_map(mapper, rec, len(scans))
+    check_sync(rec)
+    check_graph_launches("p2plane_step", launch, len(scans))
+    check(rec["recovered_ate_m"] < prior_ate / 3.0,
+          f"p2plane_step: recovered ATE {rec['recovered_ate_m']} not below "
+          f"a third of the prior's {prior_ate}")
+    check(launch["philox"] > 0 and launch.get("sweep_knn[D=3,k=3]", 0) > 0,
+          f"p2plane_step: the step draws or the matcher not on the card: "
+          f"{launch}")
+    hold_graph_solve(mapper, "p2plane_step")
+    hold_card_vs_cpu(mapper, "p2plane_step")
+    return launch
 
 
 # ---------------------------------------------------------------------------
@@ -3094,15 +3427,72 @@ SHARDED_OPTIONS = {"halo_capacity": 32_768}
 SHARDED_GATE_SCANS = 10  # scans of the drive with the insert gate
 
 
+# the sharded numbers on this sequence when its solve was a Python loop of
+# 40 masked iterations (NVIDIA H100 80GB HBM3, 700 W), printed beside this
+# run's
+MASKED_LOOP_SHARDED = {"masked_loop_step_locked_ms": 150.63,
+                       "masked_loop_free_running_scans_per_s": 6.65}
+SHARDED_P2POINT_SCANS = 8
+
+
+def hold_sharded_graph(mapper, scan, prior):
+    """One scan's sharded solve replayed from its graph against the same
+    iterations run eagerly as the masked loop (``_ShardedLoop``, every
+    ``max_iter`` iteration, no read), on the same card tensors and NCCL
+    group: T, overlap and live iterations bit for bit.  Times both."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch import se3
+    from norlab_icp_mapper_tpu_torch.draws import upload
+    from norlab_icp_mapper_tpu_torch.parallel.sharded_map import _ShardedLoop
+    sh = mapper._sharded
+    step = sh.step
+    b = nt.PointBatch.from_numpy(scan, capacity=SCAN_CAPACITY, device="cuda")
+    filtered = mapper.apply_input_filters(b)
+    scan_m = se3.apply(upload(prior, sh.device), filtered)
+    read_mask = mapper.icp.reading_filters.apply(scan_m, mapper.draws).mask
+    st = sh.state
+    args = (scan_m.positions, read_mask, st["pos"], st["nrm"], st["msk"])
+    captures = step.graph_captures
+    g = step.icp_solve(*args, draws=sh.draws)
+    index = sh.draws.solves - 1 if sh.cfg.step_filter is not None else 0
+
+    def masked():
+        return _ShardedLoop(step, *args, draws=sh.draws,
+                            solve_index=torch.full((), index,
+                                                   dtype=torch.int64,
+                                                   device="cuda")).run(
+            stop=False)
+    loop = masked()
+    same = [bool(torch.equal(a, b)) for a, b in zip(g[:3], loop[:3])]
+    graph_ms = time_cuda(lambda: step.icp_solve(*args, draws=sh.draws))
+    loop_ms = time_cuda(masked, reps=3, warmup=1)
+    rec = {"phase": "sharded_graph_vs_masked_loop",
+           "T_bit_identical": same[0], "overlap_bit_identical": same[1],
+           "iterations_bit_identical": same[2],
+           "iterations_live": int(g[2]),
+           "iterations_on_device": sh.cfg.max_iter,
+           "T_max_abs_diff": float((g[0] - loop[0]).abs().max()),
+           "new_captures": step.graph_captures - captures,
+           "solve_graph_ms": graph_ms, "solve_masked_loop_ms": loop_ms,
+           "graph_ms_per_iteration_on_device": graph_ms / sh.cfg.max_iter}
+    emit(rec)
+    check(all(same), f"sharded: the solve graph differs from the masked "
+                     f"loop: {rec}")
+    check(0 < rec["iterations_live"] < sh.cfg.max_iter,
+          f"sharded: the solve did not stop on its checkers: {rec}")
+
+
 def sharded_config(name="config_p2plane.yaml", point_distance=False,
-                   unbounded=False, static=False):
+                   unbounded=False, static=False, p2point=False):
     """A bundled config as a dict; ``point_distance`` puts a
     PointDistanceMapperModule (0.15 m) first in the module list,
     ``unbounded`` drops the matcher's maxDist (the brute-force 1-NN),
     ``static`` drops DynamicPoints and the cut at its threshold: then no
     voxel once occupied is emptied, and the occupied voxels do not depend
     on which point represents a voxel (that follows the layout: the random
-    draws are the rank's, the first point is the block's first slot)."""
+    draws are the rank's, the first point is the block's first slot);
+    ``p2point`` swaps in the point-to-point solve of the CPU tests (1-NN
+    within 1 m, trimmed 0.9, 15 iterations)."""
     import yaml
     with open(os.path.join(HERE, "examples", name)) as fh:
         cfg = yaml.safe_load(fh)
@@ -3111,6 +3501,14 @@ def sharded_config(name="config_p2plane.yaml", point_distance=False,
             "PointDistanceMapperModule": {"minDistNewPoint": 0.15}})
     if unbounded:
         cfg["icp"]["matcher"]["KDTreeMatcher"].pop("maxDist")
+    if p2point:
+        # tests/test_torch_sharded_mapper.py's point-to-point solve
+        cfg["icp"].update({
+            "matcher": {"KDTreeMatcher": {"knn": 1, "maxDist": 1.0}},
+            "outlierFilters": [{"TrimmedDistOutlierFilter": {"ratio": 0.9}}],
+            "errorMinimizer": "PointToPointErrorMinimizer",
+            "transformationCheckers": [{"CounterTransformationChecker": {
+                "maxIterationCount": 15}}]})
     if static:
         cfg["mapper"]["mapperModule"] = [
             m for m in cfg["mapper"]["mapperModule"]
@@ -3122,9 +3520,11 @@ def sharded_config(name="config_p2plane.yaml", point_distance=False,
 
 def sweep_roles(tally):
     """Wrap the sharded module's ``sweep_knn`` so that the launches made
-    inside it are added to ``tally`` by role (the radius tells matcher,
-    insert gate and angular 1-NN apart); the wrapper's own counter is read
-    before and after every call.  Returns the undo."""
+    inside it are added to ``tally`` by role (the radius tells insert gate
+    and angular 1-NN apart); the wrapper's own counter is read before and
+    after every call.  The matcher runs inside the solve's graph, whose
+    replays add to the wrapper's counter without a call: its role is the
+    rest of the D=3 k=1 launches (``sharded_drive``).  Returns the undo."""
     from norlab_icp_mapper_tpu_torch.ops import nn_sweep as S
     from norlab_icp_mapper_tpu_torch.parallel import sharded_map as SM
     inner = SM.sweep_knn
@@ -3135,7 +3535,8 @@ def sweep_roles(tally):
         r = kwargs["max_radius"]
         role = ("insert_gate" if r == 0.15 else
                 "angular" if r < 0.1 else "matcher")
-        tally[role] += S.sweep_knn.launches - before
+        if role != "matcher":  # the matcher runs in the solve's graph
+            tally[role] += S.sweep_knn.launches - before
         return out
     SM.sweep_knn = counted
 
@@ -3159,7 +3560,8 @@ def sharded_drive(mesh, config, scans, priors, strict, free=False):
     roles = collections.Counter()
     undo = sweep_roles(roles)
     reset_counts()
-    per_scan = []
+    per_scan, iters, step_reads = [], [], []
+    log = mapper._sharded.read_log
     try:
         t_free = None
         for i, (b, prior) in enumerate(zip(batches, priors)):
@@ -3170,21 +3572,28 @@ def sharded_drive(mesh, config, scans, priors, strict, free=False):
             t0 = time.time()
             torch.cuda.set_sync_debug_mode("error" if strict and i >= 2
                                            else 0)
+            n_log = len(log)
             try:
                 filtered = mapper.apply_input_filters(b)
                 mapper.process_input(filtered, prior, int(i * 1e8))
             finally:
                 torch.cuda.set_sync_debug_mode(0)
+            if i >= 2:
+                step_reads += [f"{i}:{cause}" for _, cause in log[n_log:]]
             if not free:
                 mapper.drain()
                 torch.cuda.synchronize()
             per_scan.append((time.time() - t0) * 1e3)
+            if not free and i > 0:
+                iters.append(int(mapper.last_iterations))
         mapper.drain()
         torch.cuda.synchronize()
         t_end = time.time()
     finally:
         undo()
     launches = read_counts()
+    roles["matcher"] = (launches.get("sweep_knn[D=3,k=1]", 0)
+                        - roles.get("insert_gate", 0))
     sh = mapper._sharded
     reads = collections.Counter(
         f"{i}:{cause}" for i, cause in sh.read_log
@@ -3197,9 +3606,16 @@ def sharded_drive(mesh, config, scans, priors, strict, free=False):
         "block_capacity": sh.capacity(),
         "overflow_totals": dict(sh.overflow_totals),
         "reads_by_scan_and_cause": dict(reads),
+        # the counted reads the steady scans' process_input made (a drain
+        # after a scan waits for its solve by design, and is not counted)
+        "reads_in_steady_process_input": step_reads,
         "waits": dict(sh.waits),
         "per_scan_ms": [round(v, 2) for v in per_scan],
+        "solve_graph_captures": sh.step.graph_captures,
     }
+    if iters:
+        rec["icp_iterations_live"] = iters
+        rec["mean_icp_iterations_live"] = statistics.mean(iters)
     if free:
         rec["free_running_scans_per_s"] = (len(scans) - 2) / (t_end - t_free)
     else:
@@ -3487,10 +3903,18 @@ def phase_sharded(scans, poses, priors, p2_rec):
         # scans (event waits, under "error" too): where, and why
         rec["free_running_reads_by_scan_and_cause"] = \
             free["reads_by_scan_and_cause"]
+        rec.update(MASKED_LOOP_SHARDED)
         emit(rec)
         main_launch = rec["launches"]
         ate_gate = max(1.5 * p2_rec["recovered_ate_m"],
                        p2_rec["recovered_ate_m"] + 0.002)
+        check(not rec["reads_in_steady_process_input"],
+              f"sharded: a steady step-locked scan made a counted read: "
+              f"{rec['reads_in_steady_process_input']}")
+        check(rec["solve_graph_captures"] >= 1
+              and main_launch["graph_while"] == 0,
+              f"sharded: the solve was not the unrolled graph: {rec}")
+        hold_sharded_graph(mapper, scans[-1], priors[-1])
         check(backend == "nccl", f"sharded: backend {backend}, not NCCL")
         check(rec["recovered_ate_m"] <= ate_gate,
               f"sharded: ATE {rec['recovered_ate_m']} m above {ate_gate}")
@@ -3521,6 +3945,24 @@ def phase_sharded(scans, poses, priors, p2_rec):
               f"sharded: the insert gate's sweep never launched: {grec}")
         check(grec["overflow_totals"]["insert"] == 0,
               "sharded: insert overflow with the gate")
+        # point-to-point (the CPU tests' sharded point-to-point config at
+        # the hall's size): Kabsch on the card, no counted read
+        n_p = SHARDED_P2POINT_SCANS
+        pmapper, _, prec = sharded_drive(
+            mesh, sharded_config(p2point=True), scans[:n_p], priors[:n_p],
+            strict=True)
+        prec.update({"phase": "sharded", "drive": "p2point",
+                     "prior_ate_m": ate(priors[1:n_p], poses[1:n_p]),
+                     "recovered_ate_m": ate(
+                         pmapper.get_trajectory().poses[1:], poses[1:n_p])})
+        emit(prec)
+        check(not prec["reads_in_steady_process_input"],
+              f"sharded p2point: a steady scan made a counted read: "
+              f"{prec['reads_in_steady_process_input']}")
+        check("point_to_point" not in prec["waits"],
+              f"sharded p2point: the moments went to the host: {prec}")
+        check(prec["launches"]["kabsch"] >= n_p - 1,
+              f"sharded p2point: Kabsch not on the card: {prec['launches']}")
         # the unbounded matcher: knn_brute on the block
         umapper, _, urec = sharded_drive(
             mesh, sharded_config(unbounded=True), scans[:4], priors[:4],
@@ -3582,6 +4024,7 @@ def phase_sharded(scans, poses, priors, p2_rec):
             e["name"]: urec["launches"].get("knn_brute[D=3,k=1]", 0),
             # the eigensolve of the halo covariances
             "sym_eig[D=3]": main_launch["sym_eig[D=3]"],
+            "kabsch": prec["launches"]["kabsch"],
         }
 
         # ---- two gloo ranks on the one card
@@ -3658,6 +4101,10 @@ def phase_sharded(scans, poses, priors, p2_rec):
               "counted_by": "torch.profiler device events, one steady scan "
                             "drained (the fourth and fifth scans)",
               **feeds})
+        # NCCL destroys no communicator while a graph that captured its
+        # collectives lives: every sharded mapper frees its solve graphs
+        for m_ in (mapper, gmapper, pmapper, umapper, imapper, mm):
+            m_.shutdown()
         dist.destroy_process_group()
     finally:
         if dist.is_initialized():
@@ -3812,15 +4259,31 @@ def main() -> int:
     # ---- p2point: the rest of the ICP engine on the card, a few scans.
     # Fused path first; then the same with a bound checker, which sends
     # the scans through the stepwise path (its throw happens on the host)
+    # (every solve one graph replay: Kabsch and the step filter's draws on
+    # the card; the steady solves make no synchronising call)
     n_pp = 6
     mapper, rec, _ = drive_default(scans[:n_pp], priors[:n_pp],
-                                   {"icp": p2point_icp(False)}, "p2point")
+                                   {"icp": p2point_icp(False)}, "p2point",
+                                   strict_solve=True)
     pp_launch = rec["launches"]
     finish_no_radius_phase(mapper, rec, priors, poses)
+    check_solve_sync(rec)
+    check_graph_launches("p2point", pp_launch, n_pp)
+    check(pp_launch["kabsch"] >= sum(rec["icp_iterations"][1:])
+          and pp_launch["philox"] > 0,
+          f"p2point: Kabsch or the step draws not on the card: {pp_launch}")
+    hold_graph_solve(mapper, "p2point")
     mapper, rec, _ = drive_default(scans[:4], priors[:4],
                                    {"icp": p2point_icp(True)},
-                                   "p2point_bound")
+                                   "p2point_bound", strict_solve=True)
     finish_no_radius_phase(mapper, rec, priors, poses)
+    check_solve_sync(rec)
+    check_graph_launches("p2point_bound", rec["launches"], 4)
+    hold_graph_solve(mapper, "p2point_bound")
+
+    # ---- step filters with maxDist: the p2plane config with a random step
+    # filter, its draws keyed on the card inside the solve graph
+    st_launch = phase_step_filters(scans, priors, poses)
 
     # ---- octree leaves with maxPointByNode > 1, the filter zoo, keyframes
     # and the pose graph
@@ -3847,6 +4310,7 @@ def main() -> int:
     for e in entries:
         runs = {"identity": id_launch, "p2plane": p2_launch,
                 "default": df_launch, "p2point": pp_launch,
+                "p2plane_step": st_launch,
                 "tracing": tr_launch, "octree_k": ok_launch,
                 "filters": fl_launch, "posegraph": pg_launch,
                 "cli": cli_launch, "distributed": ds_launch,

@@ -20,6 +20,15 @@ Drawing sites on the ported path:
 * ``SITE_OCTREE_LEAF`` -- the octree decimation with ``maxPointByNode > 1``
   and ``samplingMethod: 1``: one key per point, ``n`` integers in
   ``[0, 2**30)``; the smallest key of a leaf picks its representative.
+
+Inside an ICP solve the reading step filters draw from a keyed view of the
+source instead (:meth:`DrawSource.keyed`, :class:`KeyedDraws`): Philox
+uniforms (``ops/philox.py``) keyed by the source's seed and counted by the
+solve's index, the loop's device ``it`` and the reading's original row --
+the counterpart of the JAX package's ``fold_in(key, it)``.  They need no
+host, so a CUDA graph of the solve draws anew at every pass, and the card
+and the CPU draw the same numbers.  A caller-supplied ``source`` is asked
+once per matcher pass instead, under the CPU's Python loop only.
 """
 from __future__ import annotations
 
@@ -27,8 +36,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
-__all__ = ["DrawSource", "resolve_device", "upload", "SITE_RANDOM_SAMPLING",
-           "SITE_OCTREE_PRIO", "SITE_OCTREE_LEAF"]
+__all__ = ["DrawSource", "KeyedDraws", "resolve_device", "upload",
+           "SITE_RANDOM_SAMPLING", "SITE_OCTREE_PRIO", "SITE_OCTREE_LEAF"]
 
 SITE_RANDOM_SAMPLING = "random_sampling"
 SITE_OCTREE_PRIO = "octree_prio15"
@@ -73,6 +82,8 @@ class DrawSource:
                  source: Optional[Callable[[str, int], torch.Tensor]] = None):
         self.device = torch.device(device)
         self.source = source
+        self.seed = int(seed)
+        self.solves = 0  # solves keyed so far (see next_solve)
         # the generator lives on the CPU so that a seed gives the same
         # draws on every device; draws are a few hundred KB per scan
         self.generator = torch.Generator(device="cpu")
@@ -108,3 +119,41 @@ class DrawSource:
         return upload(torch.randint(0, 1 << 30, (n,), generator=self.generator,
                                     dtype=torch.int64), self.device,
                       torch.int64)
+
+    def next_solve(self) -> int:
+        """The index of the next solve whose step filters draw keyed
+        (:meth:`keyed`); one more on every call, a host counter, alike on
+        every rank of a sharded map."""
+        i = self.solves
+        self.solves += 1
+        return i
+
+    def keyed(self, solve: torch.Tensor, it: torch.Tensor) -> "KeyedDraws":
+        """The draws of one matcher pass of solve ``solve`` (0-d int64) at
+        the loop's iteration ``it`` (0-d int32), both on the device the
+        draws are made on."""
+        return KeyedDraws(self.seed, solve, it)
+
+
+class KeyedDraws:
+    """One matcher pass's draws inside a solve: a function of the seed, the
+    solve index and ``it`` (read on their device, never on the host), the
+    row, and the draw's place among the pass's draws.  ``uniform`` and
+    ``prio15`` (``(word >> 17)`` of the same Philox words: ``floor(u *
+    2**15)``) cover the step chain's drawing filters."""
+
+    source = None
+
+    def __init__(self, seed: int, solve: torch.Tensor, it: torch.Tensor):
+        self.seed, self.solve, self.it = int(seed), solve, it
+        self.device = it.device
+        self.calls = 0
+
+    def uniform(self, site: str, n: int) -> torch.Tensor:
+        from .ops.philox import philox_uniform
+        u = philox_uniform(self.seed, self.solve, self.it, self.calls, n)
+        self.calls += 1
+        return u
+
+    def prio15(self, site: str, n: int) -> torch.Tensor:
+        return (self.uniform(site, n) * float(1 << 15)).to(torch.int64)

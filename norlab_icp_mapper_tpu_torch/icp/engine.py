@@ -18,17 +18,22 @@ per scan.  This engine reproduces that contract:
 The iteration loop is the JAX package's ``lax.while_loop``: its state
 ``(T, it, done, overlap, rms, hist)`` is a set of tensors and one iteration
 is a function of them (:class:`_Loop`), masked so that an iteration after
-the stop changes no bit.  On a CUDA device the whole solve is one CUDA
-graph (:class:`_SolveGraph`): the initial state, then a WHILE node
+the stop changes no bit.  On a CUDA device every solve -- any minimizer,
+with or without reading step filters -- is one CUDA graph
+(:class:`_SolveGraph`): the initial state, then a WHILE node
 (``ops/graph_loop.py``) whose body is ``rematch_every`` iterations; the
-host reads nothing until the caller wants the result.  Graphs are cached
-per configuration and capacities.  On the CPU, for point-to-point (whose
-DxD SVD runs on the host: one read of the packed moments per iteration)
-and for configs with reading step filters (whose draws come from the
-``DrawSource`` at every pass), the same iteration runs under a Python loop
-that reads ``done`` before each iteration.  Correspondences are re-searched
-every ``rematch_every`` iterations (default 3, ``NIM_TPU_REMATCH_EVERY``)
-and held in between.
+host reads nothing until the caller wants the result.  Point-to-point takes
+its rigid increment from ``ops/kabsch.py`` on the device; the step filters
+draw keyed uniforms (``draws.KeyedDraws``, ``ops/philox.py``) counted by
+the loop's device ``it``.  Graphs are cached per configuration, step chain,
+seed and capacities.  On the CPU the same iteration runs under a Python
+loop that reads ``done`` before each iteration.  Correspondences are
+re-searched every ``rematch_every`` iterations (default 3,
+``NIM_TPU_REMATCH_EVERY``) and held in between.
+
+Step filters see the moved reading in its original row order (the sweep
+sorts it by x once per solve), so a draw lands on the same point with or
+without the sort, as in the JAX package's CPU solve.
 
 The returned "correction" has the same meaning as lpm's: ``corrected_pose =
 correction @ estimated_pose``.
@@ -51,6 +56,8 @@ import torch
 
 from .. import se3
 from ..draws import DrawSource
+from ..ops.kabsch import kabsch
+from ..ops.philox import philox_uniform
 from ..points import PointBatch
 from ..filters.core import FilterChain
 from ..ops import graph_loop
@@ -147,6 +154,10 @@ class ICPEngine:
         self.last_replay: Optional["GraphReplay"] = None
         self._graphs: "collections.OrderedDict" = collections.OrderedDict()
         self.graph_captures = 0
+        # the step filters' draws when the caller passes none, and the
+        # solve index the last keyed solve drew with
+        self._draws = DrawSource(0)
+        self.last_solve_index = 0
         self.load_config(config if config is not None else dict(_DEFAULTS))
 
     # ------------------------------------------------------------- config
@@ -301,25 +312,37 @@ class ICPEngine:
                 "or the mapper post filters")
         return ref.descriptors.get("normals", torch.zeros_like(ref.positions))
 
+    def _step(self, draws: Optional[DrawSource]):
+        """``(step chain or None, draws, solve index)`` of a solve: the
+        keyed draws take the next solve index of ``draws`` (the engine's own
+        source when the caller gives none)."""
+        if not len(self.reading_step_filters):
+            return None, draws, 0
+        draws = draws if draws is not None else self._draws
+        index = draws.next_solve() if draws.source is None else 0
+        self.last_solve_index = index
+        return self.reading_step_filters, draws, index
+
     def solve(self, read_pos, read_mask, ref_pos, ref_norm, ref_mask,
               ref_pack: Union[RefPack, KnnPack],
               draws: Optional[DrawSource] = None) -> SolveOutput:
         """The configured solve on raw tensors.  ``ref_pack`` is
         :meth:`build_ref_pack` of the reference; ``draws`` feeds the step
-        filters, if any.  On a CUDA device it is one replay of a cached
-        graph (:class:`_SolveGraph`), except for point-to-point and step
-        filters, which run the Python loop (see the module docstring)."""
+        filters, if any (keyed by its seed and its next solve index; a
+        caller-supplied ``source`` is asked once per pass, on the CPU
+        only).  On a CUDA device it is one replay of a cached graph
+        (:class:`_SolveGraph`); on the CPU the Python loop."""
         cfg = self.solve_config()
         args = (read_pos, read_mask, ref_pos, ref_norm, ref_mask, ref_pack)
-        if (read_pos.is_cuda and not len(self.reading_step_filters)
-                and self.minimizer != "PointToPointErrorMinimizer"):
-            graph = self._graph(cfg, args)
-            out = graph.run(*args)
+        step, draws, index = self._step(draws)
+        if read_pos.is_cuda:
+            _refuse_source_on_card(step, draws, read_pos.device)
+            graph = self._graph(cfg, args, step, draws)
+            out = graph.run(*args, solve_index=index)
             self.last_replay = graph.replay
         else:
-            step = (self.reading_step_filters
-                    if len(self.reading_step_filters) else None)
-            out = _icp_solve(*args, step_filters=step, draws=draws, **cfg)
+            out = _icp_solve(*args, step_filters=step, draws=draws,
+                             solve_index=index, **cfg)
             self.last_replay = None
         self.last_overflow = out[4]
         if np.isfinite(self.match_max_dist):
@@ -336,15 +359,18 @@ class ICPEngine:
             diff_checker=self.diff_checker, bound_checker=self.bound_checker,
             rematch_every=_rematch_every())
 
-    def _graph(self, cfg, args) -> "_SolveGraph":
-        """The cached solve graph for this configuration and these shapes,
-        captured on first use."""
+    def _graph(self, cfg, args, step=None, draws=None) -> "_SolveGraph":
+        """The cached solve graph for this configuration, step chain, seed
+        and shapes, captured on first use."""
+        step_key = None if step is None else (draws.seed, tuple(
+            (getattr(f, "NAME", type(f).__name__),
+             repr(sorted(f.params.items()))) for f in step.filters))
         key = (tuple(sorted(cfg.items())),
                tuple((tuple(t.shape), t.dtype) for t in args[:5]),
-               type(args[5]).__name__, args[0].device)
+               type(args[5]).__name__, args[0].device, step_key)
         graph = self._graphs.pop(key, None)
         if graph is None:
-            graph = _SolveGraph(cfg, *args)
+            graph = _SolveGraph(cfg, *args, step_filters=step, draws=draws)
             self.graph_captures += 1
             while len(self._graphs) >= _GRAPHS_KEPT:
                 self._graphs.popitem(last=False)[1].close()
@@ -400,8 +426,6 @@ class ICPEngine:
         checker does not apply here, as in the JAX package."""
         cfg = dict(self.solve_config(), max_iter=1, diff_checker=None,
                    bound_checker=None, rematch_every=1)
-        step = (self.reading_step_filters
-                if len(self.reading_step_filters) else None)
         d = self.dim
         T = torch.eye(d + 1, dtype=torch.float32,
                       device=reading.positions.device)
@@ -411,9 +435,11 @@ class ICPEngine:
         it = 0
         for it in range(1, self.max_iter + 1):
             moved = se3.apply_points(T, reading.positions)
+            step, step_draws, index = self._step(draws)
             dT, overlap, _, resid, overflow = _icp_solve(
                 moved, reading.mask, ref.positions, ref_normals, ref.mask,
-                pack, step_filters=step, draws=draws, **cfg)
+                pack, step_filters=step, draws=step_draws,
+                solve_index=index, **cfg)
             self.last_overflow = overflow
             if np.isfinite(self.match_max_dist):
                 record_overflow("icp_matcher_sweep", overflow)
@@ -461,29 +487,52 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.reshape(1)).reshape(())
 
 
+def _refuse_source_on_card(step, draws, device) -> None:
+    """A caller-supplied ``source`` is asked on the host at every pass, which
+    a solve on the card cannot do: say so instead of leaving the graph."""
+    if (step is not None and device.type == "cuda" and draws is not None
+            and draws.source is not None):
+        raise ValueError(
+            "readingStepDataPointsFilters on a CUDA device draw keyed on the "
+            "card (DrawSource.keyed); a DrawSource with a caller-supplied "
+            "`source` is asked on the host at every matcher pass and runs "
+            "only on the CPU")
+
+
+def _invert(order: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation, on its device without a host read."""
+    return torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
+
+
 class _Loop:
     """The ICP loop of one registration as state tensors and one iteration.
 
     The state is the JAX loop's ``(T, it, done, overlap, rms, hist)`` plus
-    the overflow count of the matcher, as tensors: on the reading's device,
-    or on the host for point-to-point, whose increment comes from an SVD on
-    the host.  :meth:`start` sets it (and, with ``maxDist``, sorts the
-    reading by x once); :meth:`iteration` is one JAX ``body``, written so
-    that an iteration run after the stop changes no bit of the state: every
-    update is ``where(active, new, old)`` with ``active = !done && it <
-    max_iter``.  Correspondences are searched at ``j == 0`` of a body of
-    ``body_len`` iterations (``rematch_every``, or 1 without reuse), so the
-    JAX schedule ``it % rematch_every == 0`` is static.
+    the overflow count of the matcher, as tensors on the reading's device.
+    :meth:`start` sets it (and, with ``maxDist``, sorts the reading by x
+    once); :meth:`iteration` is one JAX ``body``, written so that an
+    iteration run after the stop changes no bit of the state: every update
+    is ``where(active, new, old)`` with ``active = !done && it < max_iter``.
+    Correspondences are searched at ``j == 0`` of a body of ``body_len``
+    iterations (``rematch_every``, or 1 without reuse), so the JAX schedule
+    ``it % rematch_every == 0`` is static.
+
+    Step filters draw keyed by ``solve_index`` (0-d int64 on the device)
+    and the state's ``it`` (``draws.KeyedDraws``), or, when ``draws`` has a
+    caller-supplied ``source``, from that source once per pass (CPU only).
 
     Two loops run it: :meth:`run`, a Python loop that reads ``done``
-    before each iteration (free on the host), and :class:`_SolveGraph`, a
-    CUDA graph that repeats :meth:`body` under a WHILE node.
+    before each iteration (free on the CPU; on the card the yardstick the
+    graph is held against), and :class:`_SolveGraph`, a CUDA graph that
+    repeats :meth:`body` under a WHILE node.
     """
 
     def __init__(self, read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                  ref_pack, *, dim, k, max_dist, outlier_filters, minimizer,
                  max_iter, diff_checker, bound_checker=None,
-                 step_filters=None, draws=None, rematch_every=1):
+                 step_filters=None, draws=None, solve_index=None,
+                 rematch_every=1):
         self.read_pos, self.read_mask = read_pos, read_mask
         self.ref_pos, self.ref_norm, self.ref_mask = ref_pos, ref_norm, ref_mask
         self.ref_pack = ref_pack
@@ -501,15 +550,20 @@ class _Loop:
         self.diff_checker = diff_checker
         self.bound_checker = bound_checker
         self.step_filters = step_filters
+        self.dev = read_pos.device
+        if step_filters is not None and draws is None:
+            draws = DrawSource(0)
+        _refuse_source_on_card(step_filters, draws, self.dev)
         self.draws = draws
+        self.keyed = step_filters is not None and draws.source is None
+        self.solve_index = (solve_index if solve_index is not None
+                            else torch.zeros((), dtype=torch.int64,
+                                             device=self.dev))
         self.reuse = rematch_every > 1 and not self.identity
         self.body_len = rematch_every if self.reuse else 1
-        self.dev = read_pos.device
-        # point-to-point computes its increment on the host, so its small
-        # state lives there and reads nothing to decide the stop
-        self.sdev = torch.device("cpu") if self.p2p else self.dev
         self.dof = 6 if dim == 3 else 3
         self.corr = None
+        self.order = self.inv_order = None
 
     # ------------------------------------------------------------- state
     def start(self):
@@ -517,33 +571,35 @@ class _Loop:
         once and the whole solve runs in sweep order: rigid motion keeps the
         order near-sorted (window spans are re-measured from the moved
         coordinates every pass), and every consumer -- overlap, trimmed
-        sort, normal equations -- is permutation invariant."""
-        f32, sdev = torch.float32, self.sdev
+        sort, normal equations -- is permutation invariant.  The step
+        filters are the exception: they see the original order."""
+        f32, dev = torch.float32, self.dev
         pos, mask = self.read_pos, self.read_mask
         self.n_valid = torch.clamp(mask.to(f32).sum(), min=1.0)
         if self.bounded:
             q_x = torch.where(mask, pos[:, 0], torch.full_like(pos[:, 0], 1e9))
             order = torch.sort(q_x, stable=True).indices
             pos, mask = pos[order], mask[order]
+            if self.step_filters is not None:
+                self.order, self.inv_order = order, _invert(order)
         self.read, self.mask = pos, mask
         hdim = self.dim + 1
         smooth_len = self.diff_checker[2] if self.diff_checker else 1
-        self.eye = torch.eye(hdim, dtype=f32, device=sdev)
-        self.eye_dof = torch.eye(self.dof, dtype=f32, device=self.dev)
+        self.eye = torch.eye(hdim, dtype=f32, device=dev)
+        self.eye_dof = torch.eye(self.dof, dtype=f32, device=dev)
         self.T = self.eye.clone()
-        self.it = torch.zeros((), dtype=torch.int32, device=sdev)
-        self.done = torch.zeros((), dtype=torch.bool, device=sdev)
-        self.overlap = torch.zeros((), dtype=f32, device=sdev)
-        self.rms = torch.zeros((), dtype=f32, device=sdev)
+        self.it = torch.zeros((), dtype=torch.int32, device=dev)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.overlap = torch.zeros((), dtype=f32, device=dev)
+        self.rms = torch.zeros((), dtype=f32, device=dev)
         self.hist = torch.full((smooth_len, 2), float("inf"), dtype=f32,
-                               device=sdev)
-        self.overflow = torch.zeros((), dtype=torch.int64, device=sdev)
+                               device=dev)
+        self.overflow = torch.zeros((), dtype=torch.int64, device=dev)
 
     def outputs(self):
         """``(T, overlap, iterations, rms, overflow)`` on the reading's
         device."""
-        return tuple(t.to(self.dev) for t in (
-            self.T, self.overlap, self.it, self.rms, self.overflow))
+        return (self.T, self.overlap, self.it, self.rms, self.overflow)
 
     # --------------------------------------------------------- iteration
     def iteration(self, j: int):
@@ -560,14 +616,12 @@ class _Loop:
         if self.identity:
             dT = self.eye
         elif self.p2p:
-            dT, rms, overlap, overflow = self._minimize_point(p, q, w,
-                                                              overlap,
-                                                              overflow)
+            dT, rms = self._minimize_point(p, q, w)
         else:
             dT, rms = self._minimize_plane(p, q, qn, w)
         T_new = dT @ self.T
         new_done = torch.full((), self.identity, dtype=torch.bool,
-                              device=self.sdev)
+                              device=self.dev)
         # differential checker: rolling window of increment magnitudes
         step = torch.stack([torch.linalg.norm(dT[:d, d]),
                             _rot_angle(dT[:d, :d])])
@@ -603,9 +657,8 @@ class _Loop:
             self.iteration(j)
 
     def run(self):
-        """The loop under Python: ``done`` is read before every iteration
-        (on the host for point-to-point and on the CPU, where the read is
-        free).  Returns :meth:`outputs`."""
+        """The loop under Python: ``done`` is read before every iteration.
+        Returns :meth:`outputs`."""
         self.start()
         it = 0
         while it < self.max_iter and not bool(self.done):
@@ -614,6 +667,22 @@ class _Loop:
         return self.outputs()
 
     # ------------------------------------------------------------- pieces
+    def _stepped(self, p, cur_mask):
+        """lpm readingStepDataPointsFilters: a fresh copy of the moved
+        reading filtered at every pass (mask-only effects here), in its
+        original row order, so that draw ``i`` lands on reading point
+        ``i`` whether or not the sweep sorted the reading."""
+        draws = (self.draws.keyed(self.solve_index, self.it) if self.keyed
+                 else self.draws)
+        if self.order is None:
+            stepped = self.step_filters._apply_impl(
+                PointBatch(p, cur_mask, {}), draws)
+            return stepped.positions, stepped.mask
+        inv = self.inv_order
+        stepped = self.step_filters._apply_impl(
+            PointBatch(p[inv], cur_mask[inv], {}), draws)
+        return stepped.positions[self.order], stepped.mask[self.order]
+
     def _match_and_weigh(self, p):
         """Correspondences of the moved reading and their outlier weights:
         ``(q [N,k,D], qn [N,k,D], w [N,k], overlap, overflow)`` on the
@@ -621,11 +690,7 @@ class _Loop:
         f32 = torch.float32
         cur_mask = self.mask
         if self.step_filters is not None:
-            # lpm readingStepDataPointsFilters: re-filter a fresh copy of
-            # the (moved) reading at every pass; mask-only effects here
-            stepped = self.step_filters._apply_impl(
-                PointBatch(p, cur_mask, {}), self.draws)
-            p, cur_mask = stepped.positions, stepped.mask
+            p, cur_mask = self._stepped(p, cur_mask)
         if self.bounded:
             # q_tile=1024: tight per-tile x-spans keep the true candidate
             # range inside W at map scale
@@ -715,14 +780,11 @@ class _Loop:
         dT = se3.exp_se3(dx) if self.dim == 3 else se3.exp_se2(dx)
         return dT, torch.sqrt(wrr / wsum)
 
-    def _minimize_point(self, p, q, w, overlap, overflow):
-        """Weighted Kabsch: the moments of the weighted pairs are reduced
-        on the reading's device and come to the host packed in one tensor
-        with the pass's overlap and overflow (the one host read of the
-        iteration); the DxD SVD, the rotation and the increment are computed
-        there.  Returns ``dT``, the rms residual, the overlap and the
-        overflow as host tensors."""
-        f32, dim = torch.float32, self.dim
+    def _minimize_point(self, p, q, w):
+        """Weighted Kabsch on the reading's device: the weighted means and
+        the centred cross-covariance of the pairs, then the rigid increment
+        from ``ops/kabsch.py`` (the JAX package's SVD form, with no host
+        read).  Returns ``dT`` and the rms residual of the weighted pairs."""
         wk = w[..., None]
         wsum = torch.clamp(torch.sum(w), min=1e-9)
         mu_p = torch.sum(wk * p[:, None, :], dim=(0, 1)) / wsum
@@ -732,26 +794,14 @@ class _Loop:
         H = torch.einsum("nkd,nke->de", P, Q)  # [D, D]
         diff = p[:, None, :] - q
         wdd = torch.sum(w * torch.sum(diff * diff, -1))
-        packed = torch.cat([H.reshape(-1), mu_p, mu_q, wsum[None], wdd[None],
-                            overlap[None], overflow.to(f32)[None]]).cpu()
-        H = packed[:dim * dim].reshape(dim, dim)
-        mu_p = packed[dim * dim:dim * dim + dim]
-        mu_q = packed[dim * dim + dim:dim * dim + 2 * dim]
-        U, _, Vt = torch.linalg.svd(H)
-        det = torch.linalg.det(Vt.T @ U.T)
-        S = torch.diag(torch.cat([torch.ones(dim - 1, dtype=f32), det[None]]))
-        R = Vt.T @ S @ U.T
-        dT = torch.eye(dim + 1, dtype=f32)
-        dT[:dim, :dim] = R
-        dT[:dim, dim] = mu_q - R @ mu_p
-        rms = torch.sqrt(packed[-3] / packed[-4])
-        return dT, rms, packed[-2], packed[-1].to(torch.int64)
+        return kabsch(H, mu_p, mu_q), torch.sqrt(wdd / wsum)
 
 
 def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                ref_pack, *, dim, k, max_dist, outlier_filters,
                minimizer, max_iter, diff_checker, bound_checker=None,
-               step_filters=None, draws=None, rematch_every=1):
+               step_filters=None, draws=None, solve_index: int = 0,
+               rematch_every=1):
     """One ICP registration under the Python loop (:meth:`_Loop.run`):
     loop{ match -> weight -> minimize }.
 
@@ -759,7 +809,8 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
     (``ICPEngine.build_ref_pack``, which picks its kind; built once per
     change of the reference and cached across scans, so it stays out of the
     iteration loop).  ``step_filters`` (a ``FilterChain``) edits the
-    reading's mask at every matcher pass, drawing from ``draws``.
+    reading's mask at every matcher pass, drawing keyed by ``draws``' seed
+    and ``solve_index`` (or from its caller-supplied ``source``).
 
     Returns ``(correction (D+1,D+1), overlap, iterations (int32), rms
     residual, overflow)``, all on the reading's device; ``overflow`` sums
@@ -771,14 +822,18 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                  outlier_filters=outlier_filters, minimizer=minimizer,
                  max_iter=max_iter, diff_checker=diff_checker,
                  bound_checker=bound_checker, step_filters=step_filters,
-                 draws=draws, rematch_every=rematch_every).run()
+                 draws=draws, rematch_every=rematch_every,
+                 solve_index=torch.full((), int(solve_index),
+                                        dtype=torch.int64,
+                                        device=read_pos.device)).run()
 
 
 # --------------------------------------------------------------------------
 # the solve as one CUDA graph
 # --------------------------------------------------------------------------
 
-_COUNTED = (sweep_knn, knn)  # the kernel wrappers a solve launches
+# the kernel wrappers a solve launches
+_COUNTED = (sweep_knn, knn, kabsch, philox_uniform)
 
 
 def _counters():
@@ -823,22 +878,28 @@ class _SolveGraph:
     body's temporaries come from a memory pool of the graph's own."""
 
     def __init__(self, cfg, read_pos, read_mask, ref_pos, ref_norm, ref_mask,
-                 ref_pack):
+                 ref_pack, step_filters=None, draws=None):
         self._inputs = [torch.empty_like(t) for t in (read_pos, read_mask)]
+        # the keyed draws' solve index, copied in before each replay
+        self._solve = torch.zeros((), dtype=torch.int64,
+                                  device=read_pos.device)
         self._ref = [torch.empty_like(t) for t in (ref_pos, ref_norm,
                                                    ref_mask)]
         self._pack = type(ref_pack)(*[
             torch.empty_like(f) if isinstance(f, torch.Tensor) else f
             for f in ref_pack])
         self._src = None  # the reference tensors last copied in
-        self.loop = _Loop(*self._inputs, *self._ref, self._pack, **cfg)
+        self.loop = _Loop(*self._inputs, *self._ref, self._pack,
+                          step_filters=step_filters, draws=draws,
+                          solve_index=self._solve, **cfg)
         self._copy_in(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                       ref_pack)
         self._body_stream = torch.cuda.Stream()
         self._pool = torch.cuda.MemPool()
         before = _counters()
         # warm-up on the body stream: library handles and workspaces (cuBLAS,
-        # cuSOLVER) exist before the capture, which may not create them
+        # cuSOLVER) and the kernels' libraries exist before the capture,
+        # which may not create them
         cur = torch.cuda.current_stream()
         self._body_stream.wait_stream(cur)
         with torch.cuda.stream(self._body_stream):
@@ -882,11 +943,14 @@ class _SolveGraph:
         self._src = src  # held, so that `is` never meets a recycled id
 
     def run(self, read_pos, read_mask, ref_pos, ref_norm, ref_mask,
-           ref_pack):
-        """Copy in, replay, copy out: ``(T, overlap, iterations, rms,
+            ref_pack, solve_index: int = 0):
+        """Copy in (the solve index of the keyed draws through pinned memory,
+        without a wait), replay, copy out: ``(T, overlap, iterations, rms,
         overflow)`` as fresh tensors."""
         self._copy_in(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                       ref_pack)
+        self._solve.copy_(torch.tensor(int(solve_index), dtype=torch.int64
+                                       ).pin_memory(), non_blocking=True)
         graph_loop.replay(self.graph)
         loop = self.loop
         return tuple(t.clone() for t in (loop.T, loop.overlap, loop.it,

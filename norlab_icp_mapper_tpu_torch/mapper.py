@@ -848,6 +848,7 @@ class Mapper:
     def shutdown(self):
         self.drain()
         if self._sharded is not None:
+            self._sharded.shutdown()
             return
         if self._map_update_future is not None:
             self._map_update_future.result()

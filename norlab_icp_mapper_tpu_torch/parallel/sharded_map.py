@@ -53,8 +53,17 @@ back.  In particular:
 - eviction buffers are gathered to every rank, so each rank's cell store
   holds the same cells and restores feed identical inputs to ``insert``.
 
-Random draws: the reading filters' and step filters' draws come from a
-``DrawSource`` seeded alike on every rank and drawn in the same order; the
+The solve: one masked iteration as a function of device state
+(:class:`_ShardedLoop`).  Under NCCL on the card a scan's solve is one
+replay of a CUDA graph of all ``max_iter`` iterations, the reductions
+inside (:class:`_ShardedSolveGraph`; not a WHILE node: NCCL refuses to be
+captured in a conditional body on four ranks); under gloo it runs as a
+Python loop, which on the CPU stops at the replicated ``done``.
+
+Random draws: the reading filters' draws come from a ``DrawSource`` seeded
+alike on every rank and drawn in the same order; the step filters' draws
+are keyed by that source's seed, its solve index (a host count, alike on
+every rank) and the loop's device ``it`` (``draws.KeyedDraws``); the
 octree's ``samplingMethod: 1`` draws come from a second source keyed by the
 rank (the JAX package folds the rank into the key).
 
@@ -75,12 +84,15 @@ from .. import se3
 from ..cell_manager import CellManager, RAMCellManager
 from ..draws import (SITE_OCTREE_LEAF, SITE_OCTREE_PRIO, DrawSource,
                      resolve_device, upload)
-from ..icp.engine import _rematch_every, _rot_angle_np, _take
+from ..icp.engine import (GraphReplay, _counters, _refuse_source_on_card,
+                          _rematch_every, _restore_counters, _rot_angle_np,
+                          _take)
 from ..map import (BUFFER_SIZE, CELL_SIZE, _to_inferior_grid,
                    _to_superior_grid, bin_points_to_cells,
                    collect_cells_in_bounds)
 from ..mapper_modules.core import _spherical_angles, dynamic_points_bayes
 from ..ops.eigen import sym_eig2_smallest, sym_eig3_smallest
+from ..ops.kabsch import kabsch
 from ..ops.nn import nn1
 from ..ops.nn_sweep import presort_ref, sweep_knn
 from ..ops.pca import radius_pca
@@ -419,6 +431,8 @@ class ShardedMapperStep:
     device values on every rank.
     """
 
+    GRAPHS_KEPT = 2  # solve graphs kept (block capacities change rarely)
+
     def __init__(self, mesh, cfg: ShardedMapConfig, axis: str = "cells",
                  device=None):
         self.mesh = mesh
@@ -434,9 +448,9 @@ class ShardedMapperStep:
         # and with it its window's reach, what one rank's is (1,024 queries
         # at S=1; a multiple of the kernels' 256-query blocks)
         self.block_q_tile = max(256, (1024 // self.n_shards) // 256 * 256)
-        # host reads of the point-to-point minimizer (its SVD runs on the
-        # host), for the owner's ``waits``
-        self.p2p_reads = 0
+        # the solve graphs under NCCL, by shapes (most recently used last)
+        self._graphs: "collections.OrderedDict" = collections.OrderedDict()
+        self.graph_captures = 0
 
     # ------------------------------------------------------- collectives
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
@@ -557,10 +571,10 @@ class ShardedMapperStep:
 
     def _step_mask(self, p, read_mask, draws, order=None):
         """readingStepDataPointsFilters: a fresh mask of the moved reading
-        at every matcher pass, its draws replicated on every rank.  A
-        reading the matcher sorted (``order``) is filtered in its original
-        row order, so that every draw lands on the point it lands on in an
-        unsorted solve."""
+        at every matcher pass, its draws replicated on every rank (keyed,
+        or a caller's source).  A reading the matcher sorted (``order``) is
+        filtered in its original row order, so that every draw lands on the
+        point it lands on in an unsorted solve."""
         if self.cfg.step_filter is None:
             return read_mask
         if order is None:
@@ -572,19 +586,20 @@ class ShardedMapperStep:
             PointBatch(p[inv], read_mask[inv], {}), draws).mask[order]
 
     def _matcher(self, read_pos, read_mask, map_pos, map_msk):
-        """Per-solve matcher ``match(p, cur) -> (d2 [N], idx [N])`` (d2 = inf
-        beyond the radius), the reading it runs on and the order that
-        sorted it (None if unsorted).  ``ref_tile`` is not used: the
+        """Per-solve matcher ``match(p, cur) -> (d2 [N], idx [N], overflow)``
+        (d2 = inf beyond the radius), the reading it runs on and the order
+        that sorted it (None if unsorted).  ``ref_tile`` is not used: the
         brute-force 1-NN is ``ops.nn.nn1`` (``knn_brute`` on the card),
-        which tiles the block itself.  With a finite
-        ``match_max_dist`` the reading is sorted by x once and every pass is
-        the sorted sweep over the block's hoisted pack; every rank sorts the
-        same replicated reading alike, so the per-query reductions stay
-        aligned.  Without a radius it is the brute-force 1-NN."""
+        which tiles the block itself.  With a finite ``match_max_dist`` the
+        reading is sorted by x once and every pass is the sorted sweep over
+        the block's hoisted pack; every rank sorts the same replicated
+        reading alike, so the per-query reductions stay aligned.  Without a
+        radius it is the brute-force 1-NN."""
         cfg = self.cfg
         if not np.isfinite(cfg.match_max_dist):
             def match_bf(p, cur):
-                return nn1(p, map_pos, cur, map_msk)
+                d2, idx = nn1(p, map_pos, cur, map_msk)
+                return d2, idx, None
             return match_bf, read_pos, read_mask, None
         pre = presort_ref(map_pos, map_msk)
         q_x = torch.where(read_mask, read_pos[:, 0],
@@ -598,8 +613,7 @@ class ShardedMapperStep:
                                     max_radius=cfg.match_max_dist,
                                     q_tile=1024, W=8192, presorted=pre,
                                     assume_sorted=True)
-            record_overflow("sharded_matcher_sweep", ov)
-            return d2[:, 0], idx[:, 0]
+            return d2[:, 0], idx[:, 0], ov
         return match_sweep, read_pos, read_mask, order
 
     # ------------------------------------------------------------- solve
@@ -607,190 +621,64 @@ class ShardedMapperStep:
                   draws=None):
         """The distributed solve: point-to-plane Gauss-Newton (reduced
         ``JtJ`` / ``Jtr``), point-to-point weighted Kabsch (reduced cross
-        moments, SVD on the host) or Identity (overlap only).
+        moments, ``ops/kabsch.py`` on the device) or Identity (overlap
+        only).
 
-        The loop runs ``max_iter`` iterations on the device with a ``done``
-        flag and reads nothing back (point-to-point reads its moments once
-        per iteration and stops at ``done``): an iteration after the stop is
-        masked and changes no bit.  Returns ``(T, overlap, iters, ihist)``,
-        equal on every rank."""
+        The loop is :class:`_ShardedLoop`: its state on the device, one
+        masked iteration a function of it.  Under NCCL on the card the
+        solve is one replay of a CUDA graph (:class:`_ShardedSolveGraph`)
+        of all ``max_iter`` iterations, collectives inside, with no host
+        read; under gloo the same iterations run as a Python loop, which on
+        the CPU reads the replicated ``done`` and stops.  Step filters draw
+        keyed by the replicated seed and solve index, so every rank derives
+        the same mask.  Returns ``(T, overlap, iters, ihist)``, equal on
+        every rank; the matcher's overflowing tiles are recorded once, from
+        a device count."""
         cfg = self.cfg
-        dim = cfg.dim
-        dof = 6 if dim == 3 else 3
-        dev = read_pos.device
-        max_d2 = float(np.float32(cfg.match_max_dist * cfg.match_max_dist))
-        n_read = torch.clamp(read_mask.to(F32).sum(), min=1.0)
-        match, read_pos, read_mask, order = self._matcher(
-            read_pos, read_mask, map_pos, map_msk)
-        n_hist = cfg.max_iter if cfg.inspect else 1
-        inf = float("inf")
+        step = cfg.step_filter
+        if step is not None and draws is None:
+            draws = DrawSource(0)
+        _refuse_source_on_card(step, draws, read_pos.device)
+        index = (draws.next_solve()
+                 if step is not None and draws.source is None else 0)
+        args = (read_pos, read_mask, map_pos, map_nrm, map_msk)
+        # gloo's collectives cannot be captured: there the Python loop runs
+        if (read_pos.is_cuda
+                and dist.get_backend(self.group) == "nccl"):
+            out = self._graph(args, draws).run(*args, solve_index=index)
+        else:
+            loop = _ShardedLoop(self, *args, draws=draws,
+                                solve_index=torch.full(
+                                    (), index, dtype=torch.int64,
+                                    device=read_pos.device))
+            out = loop.run(stop=read_pos.device.type == "cpu")
+        T, overlap, iters, ihist, overflow = out
+        if np.isfinite(cfg.match_max_dist):
+            record_overflow("sharded_matcher_sweep", overflow)
+        return T, overlap, iters, ihist
 
-        if cfg.minimizer == "IdentityErrorMinimizer":
-            cur = self._step_mask(read_pos, read_mask, draws, order)
-            d2, _ = match(read_pos, cur)
-            gmin = self._reduce(d2.clone(), MIN)
-            overlap = (gmin <= max_d2).to(F32).sum() / n_read
-            ihist = torch.zeros((n_hist, 2), dtype=F32, device=dev)
-            ihist[0, 0] = overlap
-            return (torch.eye(dim + 1, dtype=F32, device=dev), overlap,
-                    torch.ones((), dtype=torch.int32, device=dev), ihist)
+    def close(self) -> None:
+        """Free the solve graphs.  NCCL does not destroy a communicator
+        while a graph that captured its collectives lives, so this comes
+        before ``destroy_process_group``."""
+        for graph in self._graphs.values():
+            graph.close()
+        self._graphs.clear()
 
-        p2p = cfg.minimizer == "PointToPointErrorMinimizer"
-        # point-to-point keeps its loop state on the host, where its SVD is
-        sdev = torch.device("cpu") if p2p else dev
-        smooth = cfg.diff_checker[2] if cfg.diff_checker else 1
-        re_every = _rematch_every()
-
-        def match_pairs(T):
-            p = se3.apply_points(T, read_pos)
-            cur = self._step_mask(p, read_mask, draws, order)
-            d2, idx = match(p, cur)
-            gmin = self._reduce(d2.clone(), MIN)
-            matched = cur & torch.isfinite(gmin) & (gmin <= max_d2)
-            overlap = matched.to(F32).sum() / n_read
-            # the outlier chain in config order, on the reduced (global)
-            # distances: every rank derives the same cuts
-            good = matched
-            for kind, param in cfg.outlier_filters:
-                if kind == "trimmed":
-                    d2f = torch.where(good, gmin, torch.full_like(gmin, inf))
-                    n_pairs = torch.clamp(good.to(F32).sum(), min=1.0)
-                    srt = torch.sort(d2f).values
-                    cut = torch.clamp((cfg.trimmed_ratio * n_pairs).to(
-                        torch.int64) - 1, 0, d2f.shape[0] - 1)
-                    good = good & (gmin <= _take(srt, cut))
-                elif kind == "maxdist":
-                    good = good & (gmin <= float(np.float32(param * param)))
-                elif kind == "median":
-                    # the mean of the two middle values for an even count
-                    d2f = torch.where(good, gmin, torch.full_like(gmin, inf))
-                    n_pairs = good.sum()
-                    srt = torch.sort(d2f).values
-                    last = d2f.shape[0] - 1
-                    lo = torch.clamp((n_pairs - 1) // 2, 0, last)
-                    hi = torch.clamp(n_pairs // 2, 0, last)
-                    med = 0.5 * (_take(srt, lo) + _take(srt, hi))
-                    good = good & (gmin <= float(np.float32(param * param))
-                                   * med)
-            mine = (d2 <= gmin) & good
-            j = torch.clamp(idx, min=0)
-            q, qn = map_pos[j], map_nrm[j]
-            for kind, param in cfg.outlier_filters:
-                if kind == "normal":
-                    # the matched normal lives on the winning rank, so the
-                    # angle gate cuts this rank's own claims
-                    pdir = p / torch.clamp(torch.linalg.norm(
-                        p, dim=1, keepdim=True), min=1e-9)
-                    cosang = torch.abs(torch.sum(pdir * qn, dim=1))
-                    mine = mine & (torch.acos(torch.clamp(cosang, 0.0, 1.0))
-                                   <= float(np.float32(param)))
-            claims = self._reduce(mine.to(F32), SUM)
-            w = torch.where(mine, 1.0 / torch.clamp(claims, min=1.0),
-                            torch.zeros_like(claims))
-            return q, qn, w, overlap
-
-        def point_to_point(p, q, w):
-            # the weighted cross moments, one reduction, one host read;
-            # H = S_pq - S_p S_q^T / wsum is the centred cross-covariance
-            sse = torch.sum(w * torch.sum((p - q) ** 2, dim=1))
-            pack = torch.cat([w.sum()[None], w @ p, w @ q,
-                              ((p * w[:, None]).T @ q).reshape(-1),
-                              sse[None]])
-            h = self._reduce(pack, SUM).cpu()
-            self.p2p_reads += 1
-            wsum = torch.clamp(h[0], min=1e-9)
-            Sp, Sq = h[1:1 + dim], h[1 + dim:1 + 2 * dim]
-            Spq = h[1 + 2 * dim:1 + 2 * dim + dim * dim].reshape(dim, dim)
-            H = Spq - torch.outer(Sp, Sq) / wsum
-            U, _, Vt = torch.linalg.svd(H)
-            det = torch.linalg.det(Vt.T @ U.T)
-            fix = torch.diag(torch.cat([torch.ones(dim - 1, dtype=F32),
-                                        det[None]]))
-            R = Vt.T @ fix @ U.T
-            dT = torch.eye(dim + 1, dtype=F32)
-            dT[:dim, :dim] = R
-            dT[:dim, dim] = Sq / wsum - R @ (Sp / wsum)
-            return dT, torch.sqrt(h[-1] / wsum)
-
-        def point_to_plane(p, q, qn, w):
-            r = torch.sum(qn * (p - q), dim=1)
-            if dim == 3:
-                J = torch.cat([qn, torch.cross(p, qn, dim=1)], dim=1)
-            else:
-                c2 = p[:, 0] * qn[:, 1] - p[:, 1] * qn[:, 0]
-                J = torch.cat([qn, c2[:, None]], dim=1)
-            Jw = J * w[:, None]
-            # JtJ, Jtr, the weight sum and the weighted sum of squares in
-            # one reduction
-            pack = torch.cat([(Jw.T @ J).reshape(-1), Jw.T @ r,
-                              w.sum()[None], torch.sum(w * r * r)[None]])
-            pack = self._reduce(pack, SUM)
-            JtJ = pack[:dof * dof].reshape(dof, dof)
-            Jtr = pack[dof * dof:dof * dof + dof]
-            lam = 1e-3 * torch.trace(JtJ) / dof + 1e-6
-            JtJ = JtJ + lam * torch.eye(dof, dtype=F32, device=dev)
-            # solve_ex: the damped matrix is never singular, and the check
-            # of linalg.solve would read on the host
-            dx = -torch.linalg.solve_ex(JtJ, Jtr).result
-            dT = se3.exp_se3(dx) if dim == 3 else se3.exp_se2(dx)
-            rms = torch.sqrt(pack[-1] / torch.clamp(pack[-2], min=1e-9))
-            return dT, rms
-
-        T = torch.eye(dim + 1, dtype=F32, device=sdev)
-        it = torch.zeros((), dtype=torch.int32, device=sdev)
-        overlap = torch.zeros((), dtype=F32, device=sdev)
-        hist = torch.full((smooth, 2), inf, dtype=F32, device=sdev)
-        done = torch.zeros((), dtype=torch.bool, device=sdev)
-        ihist = torch.zeros((n_hist, 2), dtype=F32, device=sdev)
-        corr = None
-        for j in range(cfg.max_iter):
-            if p2p and bool(done):
-                break  # a host flag, the same on every rank
-            live = ~done
-            Td = T.to(dev)
-            p = se3.apply_points(Td, read_pos)
-            if corr is None or j % re_every == 0:
-                corr = match_pairs(Td)
-            q, qn, w, ov = corr
-            if p2p:
-                dT, rms = point_to_point(p, q, w)
-                ov = ov.to(sdev)
-            else:
-                dT, rms = point_to_plane(p, q, qn, w)
-            dtrans = torch.linalg.norm(dT[:dim, dim])
-            if dim == 3:
-                drot = torch.acos(torch.clamp(
-                    (torch.trace(dT[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
-            else:
-                drot = torch.abs(torch.atan2(dT[1, 0], dT[0, 0]))
-            hist_new = torch.cat([torch.stack([dtrans, drot])[None],
-                                  hist[:-1]])
-            done_new = torch.zeros((), dtype=torch.bool, device=sdev)
-            if cfg.diff_checker is not None:
-                min_t, min_r, _ = cfg.diff_checker
-                if j + 1 >= smooth:
-                    done_new = (hist_new[:, 0].mean() < min_t) \
-                        & (hist_new[:, 1].mean() < min_r)
-            T_new = dT @ T
-            if cfg.bound_checker is not None:
-                max_rot, max_trans = cfg.bound_checker
-                if dim == 3:
-                    rot_tot = torch.acos(torch.clamp(
-                        (torch.trace(T_new[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
-                else:
-                    rot_tot = torch.abs(torch.atan2(T_new[1, 0],
-                                                    T_new[0, 0]))
-                done_new = done_new | (rot_tot > max_rot) | (
-                    torch.linalg.norm(T_new[:dim, dim]) > max_trans)
-            T = torch.where(live, T_new, T)
-            it = it + live.to(torch.int32)
-            overlap = torch.where(live, ov, overlap)
-            hist = torch.where(live, hist_new, hist)
-            if cfg.inspect:
-                row = torch.stack([ov, rms.to(sdev)])
-                ihist[j] = torch.where(live, row, ihist[j])
-            done = torch.where(live, done_new, done)
-        return T.to(dev), overlap.to(dev), it.to(dev), ihist.to(dev)
+    def _graph(self, args, draws) -> "_ShardedSolveGraph":
+        """The cached solve graph for these shapes (the block's capacity),
+        the rematch period and the draws' seed, captured on first use; every
+        rank captures at the same scan (the capacity is replicated)."""
+        seed = None if self.cfg.step_filter is None else draws.seed
+        key = (tuple(tuple(t.shape) for t in args), _rematch_every(), seed)
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            graph = _ShardedSolveGraph(self, *args, draws=draws)
+            self.graph_captures += 1
+            while len(self._graphs) >= self.GRAPHS_KEPT:
+                self._graphs.popitem(last=False)[1].close()
+        self._graphs[key] = graph
+        return graph
 
     def register(self, state, scan_pos, read_mask, est_pose, draws=None):
         """The solve of one scan against the map (the state is read, not
@@ -1019,6 +907,321 @@ class ShardedMapperStep:
         m = self._counts(new["msk"])
         return new, {"count": m["count"],
                      "max_shard_count": m["max_shard_count"]}
+
+
+class _ShardedLoop:
+    """The sharded solve of one scan as state tensors on the device and one
+    masked iteration, the counterpart of ``icp/engine.py::_Loop`` with this
+    rank's block and the step's collectives.
+
+    The state is ``(T, it, done, overlap, hist)``, the inspector's history
+    (written at the device ``it``) and the matcher's overflow count; every
+    update is ``where(active, new, old)`` with ``active = !done && it <
+    max_iter``, so an iteration after the stop changes no bit.  Iteration
+    ``j`` of the loop re-matches when ``j % rematch_every == 0``: while the
+    loop is live ``it == j``, the JAX schedule.  Step filters draw keyed by
+    the solve index and the device ``it`` (or from a caller-supplied
+    source, on the CPU only)."""
+
+    def __init__(self, step: "ShardedMapperStep", read_pos, read_mask,
+                 map_pos, map_nrm, map_msk, *, draws=None, solve_index):
+        self.step, self.cfg = step, step.cfg
+        self.read_pos, self.read_mask = read_pos, read_mask
+        self.map_pos, self.map_nrm, self.map_msk = map_pos, map_nrm, map_msk
+        self.draws = draws
+        self.keyed = (self.cfg.step_filter is not None and draws is not None
+                      and draws.source is None)
+        self.solve_index = solve_index
+        self.re_every = _rematch_every()
+        self.dev = read_pos.device
+        self.corr = None
+
+    # ------------------------------------------------------------- state
+    def start(self):
+        cfg, dev = self.cfg, self.dev
+        dim = cfg.dim
+        self.n_read = torch.clamp(self.read_mask.to(F32).sum(), min=1.0)
+        self.match, self.read, self.mask, self.order = self.step._matcher(
+            self.read_pos, self.read_mask, self.map_pos, self.map_msk)
+        smooth = cfg.diff_checker[2] if cfg.diff_checker else 1
+        n_hist = cfg.max_iter if cfg.inspect else 1
+        dof = 6 if dim == 3 else 3
+        self.eye_dof = torch.eye(dof, dtype=F32, device=dev)
+        self.T = torch.eye(dim + 1, dtype=F32, device=dev)
+        self.it = torch.zeros((), dtype=torch.int32, device=dev)
+        self.overlap = torch.zeros((), dtype=F32, device=dev)
+        self.hist = torch.full((smooth, 2), float("inf"), dtype=F32,
+                               device=dev)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.ihist = torch.zeros((n_hist, 2), dtype=F32, device=dev)
+        self.overflow = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def outputs(self):
+        """``(T, overlap, iters, ihist, overflow)`` on the device."""
+        return self.T, self.overlap, self.it, self.ihist, self.overflow
+
+    def run(self, stop: bool):
+        """The loop under Python, every rank alike: ``max_iter`` masked
+        iterations, or, with ``stop`` (on the CPU, where the read is free),
+        until the replicated ``done``.  Returns :meth:`outputs`."""
+        self.start()
+        self.solve(stop)
+        return self.outputs()
+
+    def solve(self, stop: bool = False):
+        """After :meth:`start`: Identity's one pass, or the iterations."""
+        if self.cfg.minimizer == "IdentityErrorMinimizer":
+            self._identity()
+            return
+        for j in range(self.cfg.max_iter):
+            if stop and bool(self.done):
+                break
+            self.iteration(j % self.re_every)
+
+    def _identity(self):
+        """Identity: one pass, the overlap only."""
+        cur = self.step._step_mask(self.read, self.mask, self._draws(),
+                                   self.order)
+        d2, _, ov = self.match(self.read, cur)
+        gmin = self.step._reduce(d2.clone(), MIN)
+        max_d2 = float(np.float32(self.cfg.match_max_dist ** 2))
+        self.overlap = (gmin <= max_d2).to(F32).sum() / self.n_read
+        self.ihist[0, 0] = self.overlap
+        self.it.fill_(1)
+        if ov is not None:
+            self.overflow = ov.to(torch.int64)
+
+    # --------------------------------------------------------- iteration
+    def _draws(self):
+        return (self.draws.keyed(self.solve_index, self.it) if self.keyed
+                else self.draws)
+
+    def iteration(self, j: int):
+        """One iteration, masked by ``active``; ``j`` is its place in the
+        rematch period (0 re-matches)."""
+        cfg = self.cfg
+        dim = cfg.dim
+        active = ~self.done & (self.it < cfg.max_iter)
+        p = se3.apply_points(self.T, self.read)
+        fresh = j == 0 or self.corr is None
+        if fresh:
+            self.corr = self._match_pairs(p)
+        q, qn, w, ov, overflow = self.corr
+        if cfg.minimizer == "PointToPointErrorMinimizer":
+            dT, rms = self._point_to_point(p, q, w)
+        else:
+            dT, rms = self._point_to_plane(p, q, qn, w)
+        dtrans = torch.linalg.norm(dT[:dim, dim])
+        if dim == 3:
+            drot = torch.acos(torch.clamp(
+                (torch.trace(dT[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
+        else:
+            drot = torch.abs(torch.atan2(dT[1, 0], dT[0, 0]))
+        hist_new = torch.cat([torch.stack([dtrans, drot])[None],
+                              self.hist[:-1]])
+        done_new = torch.zeros((), dtype=torch.bool, device=self.dev)
+        if cfg.diff_checker is not None:
+            min_t, min_r, smooth = cfg.diff_checker
+            done_new = ((self.it + 1 >= smooth)
+                        & (hist_new[:, 0].mean() < min_t)
+                        & (hist_new[:, 1].mean() < min_r))
+        T_new = dT @ self.T
+        if cfg.bound_checker is not None:
+            max_rot, max_trans = cfg.bound_checker
+            if dim == 3:
+                rot_tot = torch.acos(torch.clamp(
+                    (torch.trace(T_new[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
+            else:
+                rot_tot = torch.abs(torch.atan2(T_new[1, 0], T_new[0, 0]))
+            done_new = done_new | (rot_tot > max_rot) | (
+                torch.linalg.norm(T_new[:dim, dim]) > max_trans)
+        # commit: after the stop every tensor keeps its bits
+        if cfg.inspect:
+            row = torch.clamp(self.it, max=self.ihist.shape[0] - 1
+                              ).to(torch.int64).reshape(1)
+            old = self.ihist.index_select(0, row)
+            new = torch.stack([ov, rms])[None]
+            self.ihist.index_copy_(0, row, torch.where(active, new, old))
+        if fresh and overflow is not None:
+            self.overflow.add_(torch.where(active, overflow,
+                                           torch.zeros_like(overflow)))
+        self.T.copy_(torch.where(active, T_new, self.T))
+        self.overlap.copy_(torch.where(active, ov, self.overlap))
+        self.hist.copy_(torch.where(active, hist_new, self.hist))
+        self.done.copy_(torch.where(active, done_new, self.done))
+        self.it.add_(active.to(torch.int32))
+
+    # ------------------------------------------------------------- pieces
+    def _match_pairs(self, p):
+        cfg = self.cfg
+        inf = float("inf")
+        reduce = self.step._reduce
+        max_d2 = float(np.float32(cfg.match_max_dist * cfg.match_max_dist))
+        cur = self.step._step_mask(p, self.mask, self._draws(), self.order)
+        d2, idx, overflow = self.match(p, cur)
+        gmin = reduce(d2.clone(), MIN)
+        matched = cur & torch.isfinite(gmin) & (gmin <= max_d2)
+        overlap = matched.to(F32).sum() / self.n_read
+        # the outlier chain in config order, on the reduced (global)
+        # distances: every rank derives the same cuts
+        good = matched
+        for kind, param in cfg.outlier_filters:
+            if kind == "trimmed":
+                d2f = torch.where(good, gmin, torch.full_like(gmin, inf))
+                n_pairs = torch.clamp(good.to(F32).sum(), min=1.0)
+                srt = torch.sort(d2f).values
+                cut = torch.clamp((cfg.trimmed_ratio * n_pairs).to(
+                    torch.int64) - 1, 0, d2f.shape[0] - 1)
+                good = good & (gmin <= _take(srt, cut))
+            elif kind == "maxdist":
+                good = good & (gmin <= float(np.float32(param * param)))
+            elif kind == "median":
+                # the mean of the two middle values for an even count
+                d2f = torch.where(good, gmin, torch.full_like(gmin, inf))
+                n_pairs = good.sum()
+                srt = torch.sort(d2f).values
+                last = d2f.shape[0] - 1
+                lo = torch.clamp((n_pairs - 1) // 2, 0, last)
+                hi = torch.clamp(n_pairs // 2, 0, last)
+                med = 0.5 * (_take(srt, lo) + _take(srt, hi))
+                good = good & (gmin <= float(np.float32(param * param))
+                               * med)
+        mine = (d2 <= gmin) & good
+        j = torch.clamp(idx, min=0)
+        q, qn = self.map_pos[j], self.map_nrm[j]
+        for kind, param in cfg.outlier_filters:
+            if kind == "normal":
+                # the matched normal lives on the winning rank, so the
+                # angle gate cuts this rank's own claims
+                pdir = p / torch.clamp(torch.linalg.norm(
+                    p, dim=1, keepdim=True), min=1e-9)
+                cosang = torch.abs(torch.sum(pdir * qn, dim=1))
+                mine = mine & (torch.acos(torch.clamp(cosang, 0.0, 1.0))
+                               <= float(np.float32(param)))
+        claims = reduce(mine.to(F32), SUM)
+        w = torch.where(mine, 1.0 / torch.clamp(claims, min=1.0),
+                        torch.zeros_like(claims))
+        return q, qn, w, overlap, overflow
+
+    def _point_to_point(self, p, q, w):
+        """The weighted cross moments in one reduction, then the rigid
+        increment on the device (``ops/kabsch.py``); ``H = S_pq - S_p
+        S_q^T / wsum`` is the centred cross-covariance."""
+        dim = self.cfg.dim
+        sse = torch.sum(w * torch.sum((p - q) ** 2, dim=1))
+        pack = torch.cat([w.sum()[None], w @ p, w @ q,
+                          ((p * w[:, None]).T @ q).reshape(-1),
+                          sse[None]])
+        h = self.step._reduce(pack, SUM)
+        wsum = torch.clamp(h[0], min=1e-9)
+        Sp, Sq = h[1:1 + dim], h[1 + dim:1 + 2 * dim]
+        Spq = h[1 + 2 * dim:1 + 2 * dim + dim * dim].reshape(dim, dim)
+        H = Spq - torch.outer(Sp, Sq) / wsum
+        return kabsch(H, Sp / wsum, Sq / wsum), torch.sqrt(h[-1] / wsum)
+
+    def _point_to_plane(self, p, q, qn, w):
+        dim = self.cfg.dim
+        dof = self.eye_dof.shape[0]
+        r = torch.sum(qn * (p - q), dim=1)
+        if dim == 3:
+            J = torch.cat([qn, torch.cross(p, qn, dim=1)], dim=1)
+        else:
+            c2 = p[:, 0] * qn[:, 1] - p[:, 1] * qn[:, 0]
+            J = torch.cat([qn, c2[:, None]], dim=1)
+        Jw = J * w[:, None]
+        # JtJ, Jtr, the weight sum and the weighted sum of squares in one
+        # reduction
+        pack = torch.cat([(Jw.T @ J).reshape(-1), Jw.T @ r,
+                          w.sum()[None], torch.sum(w * r * r)[None]])
+        pack = self.step._reduce(pack, SUM)
+        JtJ = pack[:dof * dof].reshape(dof, dof)
+        Jtr = pack[dof * dof:dof * dof + dof]
+        lam = 1e-3 * torch.trace(JtJ) / dof + 1e-6
+        JtJ = JtJ + lam * self.eye_dof
+        # solve_ex: the damped matrix is never singular, and the check of
+        # linalg.solve would read on the host
+        dx = -torch.linalg.solve_ex(JtJ, Jtr).result
+        dT = se3.exp_se3(dx) if dim == 3 else se3.exp_se2(dx)
+        rms = torch.sqrt(pack[-1] / torch.clamp(pack[-2], min=1e-9))
+        return dT, rms
+
+
+class _ShardedSolveGraph:
+    """The sharded solve of one block capacity captured once as a CUDA
+    graph under NCCL: the initial state (the reading's sort, the block's
+    pack), then all ``max_iter`` iterations of :class:`_ShardedLoop` one
+    after another (Identity: its one pass), their ``all_reduce``s recorded
+    inside.  A replay runs the
+    whole solve with no host read; the iterations after the stop are masked
+    and change nothing.
+
+    Not a WHILE node (``ops/graph_loop.py``): on four H100s (NCCL 2.28.9,
+    CUDA 12.8) ending the capture of a WHILE body that holds an NCCL
+    ``all_reduce`` fails with ``cudaErrorInvalidValue``, while the same
+    collectives captured one after another replay correctly
+    (``sharded_cards.py --probe``).
+
+    The reading and the block are copied into static buffers before each
+    replay, the solve index of the keyed draws through pinned memory; the
+    outputs are copied out.  Warm-up and capture run on one side stream,
+    after one eager iteration there (library handles, the kernels'
+    libraries and NCCL's communicator exist before the capture)."""
+
+    def __init__(self, step, read_pos, read_mask, map_pos, map_nrm, map_msk,
+                 draws=None):
+        self._inputs = [torch.empty_like(t) for t in (
+            read_pos, read_mask, map_pos, map_nrm, map_msk)]
+        self._solve = torch.zeros((), dtype=torch.int64,
+                                  device=read_pos.device)
+        self.loop = _ShardedLoop(step, *self._inputs, draws=draws,
+                                 solve_index=self._solve)
+        self._copy_in(read_pos, read_mask, map_pos, map_nrm, map_msk, 0)
+        self._stream = torch.cuda.Stream()
+        before = _counters()
+        self._stream.wait_stream(torch.cuda.current_stream())
+        loop = self.loop
+        with torch.cuda.stream(self._stream):
+            loop.start()
+            if step.cfg.minimizer == "IdentityErrorMinimizer":
+                loop.solve()
+            else:
+                loop.iteration(0)
+        warm = _counters()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                loop.start()
+                loop.solve()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream().wait_stream(self._stream)
+        captured = _counters()
+        _restore_counters(before)  # warm-up and capture launched nothing
+        self.replay = GraphReplay(tuple(
+            (n1 - n0, {key: v - b0.get(key, 0) for key, v in b1.items()})
+            for (n0, b0), (n1, b1) in zip(warm, captured)), 1)
+
+    def _copy_in(self, *tensors_and_index):
+        *tensors, index = tensors_and_index
+        for dst, t in zip(self._inputs, tensors):
+            dst.copy_(t)
+        self._solve.copy_(torch.tensor(int(index), dtype=torch.int64
+                                       ).pin_memory(), non_blocking=True)
+
+    def run(self, read_pos, read_mask, map_pos, map_nrm, map_msk,
+            solve_index: int = 0):
+        """Copy in, replay, copy out: ``(T, overlap, iters, ihist,
+        overflow)`` as fresh tensors; the wrappers' launch counts grow by
+        one replay's."""
+        self._copy_in(read_pos, read_mask, map_pos, map_nrm, map_msk,
+                      solve_index)
+        self.graph.replay()
+        self.replay.count(1)
+        return tuple(t.clone() for t in self.loop.outputs())
+
+    def close(self) -> None:
+        self.graph.reset()
 
 
 def _host(tensors: List[torch.Tensor]):
@@ -1555,9 +1758,6 @@ class ShardedMapper:
         reg = self.step.register(self.state, scan.positions,
                                  read_mask.to(self.device), est_t,
                                  self.draws)
-        if self.step.p2p_reads:
-            self.waits["point_to_point"] += self.step.p2p_reads
-            self.step.p2p_reads = 0
         # the pose's host copy is queued before the merge: a reader of the
         # pose waits for the solve, not for the merge
         host, ev = _host([reg["pose"]])
@@ -1694,6 +1894,15 @@ class ShardedMapper:
         return out
 
     # ----------------------------------------------------------- accessors
+    def shutdown(self) -> None:
+        """Drain and free the solve graphs (before the process group is
+        destroyed: NCCL waits for the graphs that captured its
+        collectives); the mapper maps on, capturing anew, if fed again."""
+        self.drain()
+        self.step.close()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def get_pose(self) -> np.ndarray:
         """The latest corrected pose; for a scan on the card this waits for
         its solve (not for its merge)."""

@@ -462,6 +462,38 @@ def test_step_filters_with_injected_draws(rng, monkeypatch, rematch):
     assert 0.5 < float(rt.overlap) < 0.7
 
 
+@pytest.mark.parametrize("rematch", [1, 3])
+def test_step_filters_with_injected_draws_on_the_sorted_path(rng, monkeypatch,
+                                                             rematch):
+    """The injected-draws case with the default matcher (``knn: 3``,
+    ``maxDist: 1.0``): the port sorts the reading by x inside the solve, the
+    reference on the CPU does not.  The step chain runs on the moved reading
+    in its original row order, so draw ``i`` lands on reading point ``i`` in
+    both packages, and T agrees within 1e-5 (the same pairs, summed in
+    another order)."""
+    world, normals, off, reading = _scene(rng, 3)
+    cfg = _config("PointToPlaneErrorMinimizer", {
+        "readingStepDataPointsFilters": [
+            {"RandomSamplingDataPointsFilter": {"prob": 0.6}}]})
+    asked = []
+
+    def source(site, n):
+        assert site == SITE_RANDOM_SAMPLING
+        it = len(asked) * rematch
+        asked.append(n)
+        key = jax.random.fold_in(jax.random.PRNGKey(0), it)
+        _, sub = jax.random.split(key)
+        return torch.from_numpy(np.array(jax.random.uniform(sub, (n,))))
+
+    rj, rt, _ = _run_both(cfg, world, normals, reading, 3, monkeypatch,
+                          rematch, draws=DrawSource(0, "cpu", source))
+    _assert_same_registration(rj, rt, 3)
+    np.testing.assert_allclose(rt.correction.numpy(),
+                               np.asarray(rj.correction), atol=1e-5)
+    assert int(rj.iterations) == rt.iterations
+    assert len(asked) == -(-rt.iterations // rematch)
+
+
 def test_step_filters_without_draws_on_the_sorted_path(rng, monkeypatch):
     """A step filter that draws nothing (a bounding box in the map frame),
     with ``maxDist``: the port's reading is sorted along x inside the solve,

@@ -219,9 +219,10 @@ def _solve_three_ways(one_rank_group, rng, icp_cfg, kw, xyz_err, normals):
 
 
 def test_p2point_minimizer_parity_sharded_vs_single(rng, one_rank_group):
-    """The distributed weighted Kabsch (reduced cross moments, the SVD on
-    the host) against the JAX package's sharded solve and the port's
-    single-device SVD minimizer, both within the JAX test's 5e-3."""
+    """The distributed weighted Kabsch (reduced cross moments, the rigid
+    increment from ``ops/kabsch.py`` on the moments' device, no host read)
+    against the JAX package's sharded solve (its SVD) and the port's
+    single-device Kabsch minimizer, both within the JAX test's 5e-3."""
     icp_cfg = {
         "matcher": {"KDTreeMatcher": {"knn": 1, "maxDist": 1.0}},
         "outlierFilters": [{"TrimmedDistOutlierFilter": {"ratio": 0.9}}],
@@ -238,6 +239,53 @@ def test_p2point_minimizer_parity_sharded_vs_single(rng, one_rank_group):
     assert np.abs(Tt - T1).max() < 5e-3
     err = np.linalg.norm(corrected[:3, 3] - true_pose[:3, 3])
     assert err < 0.5 * np.linalg.norm(est[:3, 3] - true_pose[:3, 3])
+
+
+@pytest.mark.parametrize("minimizer,inspect", [
+    ("PointToPointErrorMinimizer", False),
+    ("PointToPlaneErrorMinimizer", True)])
+def test_loop_stopping_on_done_equals_the_masked_loop(rng, one_rank_group,
+                                                      minimizer, inspect):
+    """The sharded solve as the card's graph runs it -- all ``max_iter``
+    iterations, those after the stop masked -- against the loop that reads
+    the replicated ``done`` and stops (the CPU's): T, overlap, iterations,
+    the inspector's history and the overflow count bit for bit, with a
+    keyed random step filter drawing at the same solve index, and the stop
+    well before ``max_iter``."""
+    from norlab_icp_mapper_tpu_torch.draws import DrawSource
+    from norlab_icp_mapper_tpu_torch.filters.core import FilterChain
+    from norlab_icp_mapper_tpu_torch.parallel.sharded_map import _ShardedLoop
+    world, desc, scan_np, est, _ = _map_and_reading(rng, [0.12, -0.08, 0.05],
+                                                    True)
+    step_chain = FilterChain.from_yaml(
+        [{"RandomSamplingDataPointsFilter": {"prob": 0.8}}])
+    cfg = ShardedMapConfig(
+        dim=3, cell_size=2.0, voxel_size=0.0, minimizer=minimizer,
+        match_max_dist=1.0, max_iter=30, trimmed_ratio=0.9,
+        diff_checker=(1e-3, 1e-3, 3), step_filter=step_chain._apply_impl,
+        update_condition="delay", update_value=1e9, window_enabled=False,
+        inspect=inspect)
+    sm = ShardedMapper(one_rank_group, cfg, device="cpu")
+    sm.bootstrap(nt.PointBatch.from_numpy(world, desc, device="cpu"),
+                 np.eye(4, dtype=np.float32))
+    scan_m = torch.from_numpy(
+        (scan_np @ est[:3, :3].T + est[:3, 3]).astype(np.float32))
+    mask = torch.ones(scan_m.shape[0], dtype=torch.bool)
+    st = sm.state
+    outs = []
+    for stop in (True, False):
+        loop = _ShardedLoop(sm.step, scan_m, mask, st["pos"], st["nrm"],
+                            st["msk"], draws=DrawSource(7),
+                            solve_index=torch.tensor(5))
+        outs.append(loop.run(stop=stop))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    T, overlap, iters, ihist, _ = outs[0]
+    assert 3 < int(iters) < 30
+    assert 0.5 < float(overlap) <= 1.0
+    if inspect:
+        assert (ihist[:int(iters), 0] > 0).all()
+        assert (ihist[int(iters):] == 0).all()
 
 
 def test_outlier_filter_chain_parity_sharded_vs_single(rng, one_rank_group):

@@ -70,6 +70,16 @@ def cases(world_ranks):
             minimizer="IdentityErrorMinimizer", **small), scans=scans,
             ests=trues),
     ]
+    # point-to-point with the differential checker and a random step
+    # filter: the loop stops on the replicated ``done`` well before
+    # max_iter, and the step mask is drawn keyed alike on every rank
+    out.append(dict(
+        name="stops", cfg=corridor_cfg(
+            minimizer="PointToPointErrorMinimizer", cell_size=2.0,
+            halo_capacity=4096, max_iter=30,
+            diff_checker=(1e-3, 1e-3, 3)),
+        step_yaml=[{"RandomSamplingDataPointsFilter": {"prob": 0.8}}],
+        scans=scans, ests=ests))
     if world_ranks == 2:
         w = tsm.make_world(np.random.default_rng(42))
         out.append(dict(
@@ -125,7 +135,7 @@ def in_process():
     try:
         mesh = make_mesh()
         for c in cases(2):
-            sm = ShardedMapper(mesh, ShardedMapConfig(**c["cfg"]),
+            sm = ShardedMapper(mesh, torch_dist_worker.sharded_config(c),
                                device="cpu")
             for i, (scan, est) in enumerate(zip(c["scans"], c["ests"])):
                 sm.process_input(nt.PointBatch.from_numpy(scan, device="cpu"),
@@ -184,6 +194,21 @@ def test_ranks_agree_bit_for_bit(runs, world):
         assert not any(bool(r["jax_imported"]) for r in ranks)
         # the block searches keep one rank's tile extent: 1,024 / S queries
         assert int(r0["q_tile"]) == {2: 512, 4: 256}[world]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ranks_stop_on_the_replicated_done_and_agree(runs, world):
+    """The solve loop reads the all-reduced ``done`` on the CPU and stops:
+    every rank stops at the same iteration of every scan, well before
+    ``max_iter``, and ends bit for bit with the others; the keyed step
+    draws are the same on every rank (same seed, same solve index)."""
+    ranks = runs[world]["stops"]
+    its = ranks[0]["iters"][1:]  # the first scan only bootstraps the map
+    assert (its > 1).all() and (its < 30).all() and its.max() > 3
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["iters"], ranks[0]["iters"])
+        np.testing.assert_array_equal(r["poses"], ranks[0]["poses"])
+    assert np.isfinite(ranks[0]["poses"]).all()
 
 
 @pytest.mark.parametrize("world", [2, 4])

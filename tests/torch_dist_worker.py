@@ -46,6 +46,18 @@ def run_rank(rank, world, port, out_dir, case):
         dist.destroy_process_group()
 
 
+def sharded_config(case):
+    """The case's ``ShardedMapConfig``: its keyword arguments, and a step
+    chain from the case's ``step_yaml`` (a filter chain does not cross the
+    spawn, its YAML does)."""
+    from norlab_icp_mapper_tpu_torch.filters.core import FilterChain
+    from norlab_icp_mapper_tpu_torch.parallel import ShardedMapConfig
+    kw = dict(case["cfg"])
+    if case.get("step_yaml"):
+        kw["step_filter"] = FilterChain.from_yaml(case["step_yaml"])._apply_impl
+    return ShardedMapConfig(**kw)
+
+
 def run_sharded_rank(rank, world, port, out_dir, job):
     """One rank of the port's ``ShardedMapper`` over gloo: every case of
     ``job["cases"]`` in turn, drained after every scan; each case's poses,
@@ -64,10 +76,10 @@ def run_sharded_rank(rank, world, port, out_dir, job):
     try:
         mesh = make_mesh(world)
         for case in job["cases"]:
-            sm = ShardedMapper(mesh, ShardedMapConfig(**case["cfg"]),
-                               device="cpu")
+            sm = ShardedMapper(mesh, sharded_config(case), device="cpu")
             for k, v in case.get("attrs", {}).items():
                 setattr(sm, k, v)
+            iters = []
             for i, (scan, est) in enumerate(zip(case["scans"],
                                                 case["ests"])):
                 sm.process_input(PointBatch.from_numpy(scan, device="cpu"),
@@ -77,6 +89,8 @@ def run_sharded_rank(rank, world, port, out_dir, job):
                     sm.table_np = np.zeros_like(sm.table_np)
                     sm.table = sm._table_dev(sm.table_np)
                 sm.drain()
+                iters.append(-1 if sm.last_iterations is None
+                             else int(sm.last_iterations))
             m = sm.drain()
             g = sm.get_map()
             cells = sorted(sm.cell_manager.get_all_cell_ids())
@@ -95,6 +109,7 @@ def run_sharded_rank(rank, world, port, out_dir, job):
                 last_rebalance=sm._last_rebalance_scan,
                 rebalance_overflow=sm.overflow_totals.get("rebalance", 0),
                 capacity=sm.capacity(), q_tile=sm.step.block_q_tile,
+                iters=np.asarray(iters),
                 jax_imported=any(
                     k == "jax" or k.startswith("jax.")
                     or k == "norlab_icp_mapper_tpu"
