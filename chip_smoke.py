@@ -15,10 +15,17 @@ Phases:
   card      the card's name and power limit, torch and CUDA versions
   build     compiles the kernels (all sources in parallel), prints the seconds
   kernels   each kernel against its plain version at the path's shapes, and
-            the WHILE node that runs the ICP loop against a Python loop;
-            ``kabsch`` (well conditioned, reflection, rank 2, near identity,
-            2-D; bit for bit, and against a float64 SVD) and ``philox``
-            (49,152 rows and ragged lengths, bit for bit)
+            the WHILE node that runs the ICP loop (a body of one
+            ``loop_commit`` that sets its condition) against a Python loop;
+            ``loop_commit`` (active and inactive, the differential checker
+            warming, tripping and holding, the bound checker, the identity
+            minimizer, 2-D and 3-D; bit for bit), ``kabsch`` (well
+            conditioned, reflection, rank 2, near identity, 2-D; bit for
+            bit, and against a float64 SVD), ``p2p_step`` (49,152 rows at
+            k = 1 and 3, 2-D: float64 moments within 1e-12, the solve bit
+            for bit on the same moments, dT within 1e-6, R against a float64
+            SVD) and ``philox`` (49,152 rows and ragged lengths, bit for
+            bit)
   identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence,
             drained after every scan; the steady-state scans' filters and
             step run under ``torch.cuda.set_sync_debug_mode("error")``
@@ -105,8 +112,12 @@ Phases:
             steady scan beside the single-device Mapper's
   profile   device time of the new kernels by name and device launches per
             stage, from ``torch.profiler`` (last: its hooks slow every later
-            launch); then the ``phase_split`` line: the SurfaceNormal radius
-            branch stage by stage, ms between CUDA events and device launches
+            launch); each held phase's last solve graph replayed under it
+            (device ms and launches per ICP iteration, the in-graph
+            kernels' device time), then the ``solve_device_per_iteration``
+            line beside the numbers from before the commit kernel; then the
+            ``phase_split`` line: the SurfaceNormal radius branch stage by
+            stage, ms between CUDA events and device launches
 
 The sequence is 18 scans of a ray-cast lidar (64 rings x 768 azimuths =
 49,152 rays) in an analytic hall of 60 x 25 x 5 m with box obstacles, made
@@ -152,6 +163,9 @@ import numpy as np
 import torch
 
 PEAK_F32_FLOPS = 67.0e12
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet; the
+# guide's table has no float64 rate)
+PEAK_F64_FLOPS = 34.0e12
 PEAK_BYTES = 3.35e12
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -540,10 +554,13 @@ def phase_profile():
     """Device time of the kernels by name and device launches per stage,
     as ``torch.profiler`` records them on the card."""
     out = {"phase": "profile", "kernel_device_ms": {}, "device_launches": {},
+           "solve_device": {},
            "launches_counted_by": "torch.profiler device events"}
     for kind, key, fn, part in PROFILE_JOBS:
         if kind == "device_ms":
             out["kernel_device_ms"][key] = kernel_device_ms(fn, part)
+        elif kind == "solve":
+            out["solve_device"][key] = solve_device_profile(*fn)
         else:
             out["device_launches"][key] = count_device_launches(fn)
     PROFILE_JOBS.clear()
@@ -958,7 +975,68 @@ def count_device_launches(fn):
     return n or None
 
 
+IN_REPLAY_KERNELS = {"loop_commit": "loop_commit_kernel",
+                     "p2p_step": "p2p_step_kernel",
+                     "philox": "philox_uniform_kernel"}
+
+
+def solve_device_profile(replay, body=None, body_len=1, iterations=None,
+                         recapture=None):
+    """One solve graph's replay (``replay()``) measured: its time between
+    CUDA events per ICP iteration (``iterations``, else the solve's own
+    count); under ``torch.profiler`` its device time and device activities
+    (kernels, copies, fills) per iteration and the mean device time of each
+    in-graph kernel of ``IN_REPLAY_KERNELS``.  The profiler sees every run
+    of a WHILE node's body only in a graph made after it was first started
+    in the process (a graph made before shows its body once per replay), so
+    ``recapture()`` drops the cached graph after a first profiler session
+    and the next replay captures it anew.  ``body()``, one run of the same
+    body under the Python loop (``body_len`` iterations), counts the
+    launches per iteration a second way.  None where the profiler records
+    no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if recapture is not None:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        recapture()
+    res = replay()
+    torch.cuda.synchronize()
+    iters = int(iterations if iterations is not None else res[2])
+    replay_ms = time_cuda(replay, reps=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = replay()
+        torch.cuda.synchronize()
+    if iterations is None:
+        iters = int(res[2])
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    kernels = {}
+    for name, part in IN_REPLAY_KERNELS.items():
+        us = [e.device_time_total for e in dev if part in e.name]
+        if us:
+            kernels[name] = {"launches": len(us),
+                             "mean_device_ms": sum(us) / len(us) / 1e3}
+    busy_ms = sum(e.device_time_total for e in dev) / 1e3
+    rec = {"iterations": iters, "replay_ms": replay_ms,
+           "replay_ms_per_iteration": replay_ms / max(iters, 1),
+           "device_ms": busy_ms,
+           "device_ms_per_iteration": busy_ms / max(iters, 1),
+           "device_launches": len(dev),
+           "device_launches_per_iteration": len(dev) / max(iters, 1),
+           "kernels": kernels}
+    if body is not None:
+        rec["eager_body_launches_per_iteration"] = \
+            count_device_launches(body) / body_len
+    return rec
+
+
 PHASE_SPLIT = {}  # the phase_split record, waiting for its launch counts
+SHARDED_SOLVE = {}  # the sharded solve graph's numbers, for the summary
 
 
 def phase_split(mp, knn, radius):
@@ -1345,7 +1423,9 @@ def phase_kernels(scans, poses, seed):
     exact_cases(rng, dev)
     entries += knn_cases(scans, poses, rng, dev)
     entries.append(while_node_case())
+    entries.append(loop_commit_case(rng))
     entries.append(kabsch_case(rng))
+    entries.append(p2p_step_case(rng))
     entries.append(philox_case())
     return entries
 
@@ -1520,32 +1600,336 @@ def philox_case():
             "library_ms": library_ms}
 
 
+COMMIT_MAX_ITER = 40
+# (name, it, done, step, differential checker, bound checker, identity,
+#  the done flag the commit must leave; None: inactive, every bit kept)
+COMMIT_STATES = (
+    ("inactive_done", 5, True, "large", (1e-3, 1e-3, 4), (0.8, 1.0), False,
+     None),
+    ("inactive_counter", COMMIT_MAX_ITER, False, "large", (1e-3, 1e-3, 4),
+     None, False, None),
+    ("diff_warming", 1, False, "small", (1e-3, 1e-3, 4), None, False, False),
+    ("diff_trips", 6, False, "small", (1e-3, 1e-3, 4), None, False, True),
+    ("diff_holds", 6, False, "large", (1e-3, 1e-3, 4), None, False, False),
+    ("bound_trips", 2, False, "large", None, (0.5, 0.05), False, True),
+    ("bound_holds", 2, False, "large", (1e-3, 1e-3, 4), (1.0, 10.0), False,
+     False),
+    ("identity", 0, False, "identity", None, None, True, True),
+)
+
+
+def rigid(rng, angle, shift, dim):
+    """A seeded rigid transform ``[D+1, D+1]`` in float32."""
+    T = np.eye(dim + 1)
+    if dim == 2:
+        T[:2, :2] = [[np.cos(angle), -np.sin(angle)],
+                     [np.sin(angle), np.cos(angle)]]
+    else:
+        a = rng.normal(size=3)
+        a /= np.linalg.norm(a)
+        K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+        T[:3, :3] = np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+    T[:dim, dim] = rng.normal(size=dim) * shift
+    return T.astype(np.float32)
+
+
+def commit_state(rng, dim, it, done, step, diff, identity, fresh, dev):
+    """The loop state and one iteration's results as ``loop_commit`` takes
+    them, on ``dev``: the kwargs of one call."""
+    rows = diff[2] if diff else 1
+    hist = np.full((rows, 2), np.inf, np.float32)
+    hist[:min(it, rows)] = rng.uniform(0, 4e-4, size=(min(it, rows), 2))
+    dT = {"identity": np.eye(dim + 1, dtype=np.float32),
+          "small": rigid(rng, 2e-4, 1e-4, dim),
+          "large": rigid(rng, 0.05, 0.05, dim)}[step]
+    t = lambda x, dt: torch.tensor(x, dtype=dt, device=dev)  # noqa: E731
+    kw = dict(dT=torch.from_numpy(dT).to(dev),
+              T=torch.from_numpy(rigid(rng, 0.3, 0.3, dim)).to(dev),
+              it=t(it, torch.int32), done=t(done, torch.bool),
+              hist=torch.from_numpy(hist).to(dev),
+              overlap_new=t(0.8125, torch.float32),
+              overlap=t(0.25, torch.float32))
+    if not identity:
+        kw.update(rms_new=t(0.0625, torch.float32), rms=t(0.5, torch.float32))
+    if fresh:
+        kw.update(overflow_new=t(2, torch.int64), overflow=t(3, torch.int64))
+    return kw
+
+
+def _commit(fn, kw, max_iter=COMMIT_MAX_ITER, **cfg):
+    args = [kw[k] for k in ("dT", "T", "it", "done", "hist", "overlap_new",
+                            "overlap")]
+    fn(*args, rms_new=kw.get("rms_new"), rms=kw.get("rms"),
+       overflow_new=kw.get("overflow_new"), overflow=kw.get("overflow"),
+       max_iter=max_iter, **cfg)
+
+
+def commit_bytes(dim, rows) -> int:
+    """Bytes one commit must move: dT, T, it, done, the window, overlap,
+    rms and overflow (new and state) read once; T, it, done, the window,
+    overlap, rms and overflow written once."""
+    mat = (dim + 1) ** 2 * 4
+    read = 2 * mat + 4 + 1 + rows * 8 + 2 * 4 + 2 * 4 + 2 * 8
+    write = mat + 4 + 1 + rows * 8 + 4 + 4 + 8
+    return read + write
+
+
+def commit_ops(dim, rows) -> int:
+    """f32 operations of one commit with both checkers: the product
+    (H^2 (H mul + H-1 add)), two norms (D mul, D-1 add, sqrt), two angles
+    (3-D: 2 add, sub, div, 2 compares, acos counted as 20), the window
+    means (2 (rows-1) add, 2 div) and six compares."""
+    h = dim + 1
+    angle = 26 if dim == 3 else 21  # atan2 counted as 20
+    return h * h * (2 * h - 1) + 2 * (2 * dim) + 2 * angle \
+        + 2 * (rows - 1) + 2 + 6
+
+
+def loop_commit_case(rng):
+    """``loop_commit`` (``csrc/graph_loop.cu``) against
+    ``loop_commit_plain`` on the same card tensors, bit for bit, over states
+    that cover an active and an inactive loop, the differential checker
+    warming, tripping and holding, the bound checker tripping and holding,
+    the identity minimizer, with and without a matcher pass's overflow, in
+    2-D and 3-D; each against the CPU's plain version too (acos / atan2 of
+    another library: reported).  Then the launch timed beside the plain
+    version; the device time inside a solve graph's replay comes from the
+    profile phase."""
+    from norlab_icp_mapper_tpu_torch.ops.graph_loop import (
+        loop_commit, loop_commit_plain)
+    dev = torch.device("cuda")
+    before = loop_commit.launches
+    worst_cpu, n_states = 0.0, 0
+    for dim in (2, 3):
+        for (name, it, done, step, diff, bound, identity,
+             want_done) in COMMIT_STATES:
+            for fresh in (True, False):
+                seed = int(rng.integers(2**31))
+                states = [commit_state(np.random.default_rng(seed), dim, it,
+                                       done, step, diff, identity, fresh, d)
+                          for d in (dev, dev, "cpu")]
+                orig = {k: v.clone() for k, v in states[0].items()}
+                cfg = dict(identity=identity, diff_checker=diff,
+                           bound_checker=bound)
+                _commit(loop_commit, states[0], **cfg)
+                _commit(loop_commit_plain, states[1], **cfg)
+                _commit(loop_commit_plain, states[2], **cfg)
+                torch.cuda.synchronize()
+                k, p, c = states
+                same = all(torch.equal(k[key], p[key]) for key in k)
+                cpu = max(float((k[key].cpu().double()
+                                 - c[key].double()).abs().nan_to_num(
+                                     0.0).max()) for key in k)
+                worst_cpu = max(worst_cpu, cpu)
+                kept = all(torch.equal(k[key], orig[key]) for key in k)
+                rec = {"phase": "kernel_case",
+                       "case": f"loop_commit_{name}_D{dim}"
+                               f"{'' if fresh else '_held_pairs'}",
+                       "kernel": "loop_commit", "bit_identical_plain": same,
+                       "max_abs_diff_cpu_plain": cpu,
+                       "done": bool(k["done"]), "it": int(k["it"]),
+                       "state_kept": kept}
+                emit(rec)
+                n_states += 1
+                check(same, f"loop_commit {name} D={dim}: kernel differs "
+                            f"from its plain version: {rec}")
+                if want_done is None:
+                    check(kept, f"loop_commit {name} D={dim}: an inactive "
+                                f"commit changed the state: {rec}")
+                else:
+                    check(rec["done"] == want_done
+                          and rec["it"] == it + 1,
+                          f"loop_commit {name} D={dim}: done / it: {rec}")
+                check(cpu < 1e-5, f"loop_commit {name} D={dim}: the card "
+                                  f"and the CPU differ by {cpu}")
+    # timed: 3-D, both checkers, never tripping (an angle is at most pi),
+    # a matcher pass, a counter that does not run out: every commit active
+    kw = commit_state(np.random.default_rng(1), 3, 6, False, "small",
+                      (0.0, 0.0, 4), False, True, dev)
+    cfg = dict(diff_checker=(0.0, 0.0, 4), bound_checker=(3.2, 1e9),
+               max_iter=2**30)
+    ms = time_cuda(lambda: _commit(loop_commit, kw, **cfg))
+    plain_ms = time_cuda(lambda: _commit(loop_commit_plain, kw, **cfg),
+                         reps=7, warmup=1)
+    loop_commit.launches = before
+    bytes_moved = commit_bytes(3, 4)
+    ops = commit_ops(3, 4)
+    ops_ms = ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": "loop_commit_timed",
+          "kernel": "loop_commit", "states_held": n_states,
+          "kernel_ms": ms, "plain_ms": plain_ms, "bytes": bytes_moved,
+          "f32_operations": ops, "bound_ops_ms": ops_ms,
+          "bound_bytes_ms": bytes_ms})
+    return {"name": "loop_commit", "route": "cuda",
+            "source": "norlab_icp_mapper_tpu_torch/csrc/graph_loop.cu",
+            "replaces": "icp/engine.py:600", "launches": 0,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def p2p_pairs(rng, n, k, dim, dev):
+    """Seeded weighted pairs at the hall's coordinates (the reading 20-60 m
+    from the origin), as the point-to-point minimizer gets them: ``k``
+    matches a row, a tenth of the rows masked (weight 0, matched to the
+    map's first point), trimmed pairs at weight 0."""
+    scale = np.array([12.0, 6.0, 1.5][:dim])
+    p = rng.normal(size=(n, dim)) * scale + np.array([40.0, 15.0, 2.0][:dim])
+    R = rigid(rng, 0.02, 0.0, dim)[:dim, :dim].astype(np.float64)
+    q = (p @ R.T + np.array([0.05, -0.03, 0.02][:dim]))[:, None, :] \
+        + rng.normal(size=(n, k, dim)) * 0.01
+    w = (rng.random((n, k)) < 0.9).astype(np.float64)
+    masked = rng.random(n) < 0.1
+    w[masked] = 0.0
+    q[masked] = q[0, 0]
+    return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (p, q, w)]
+
+
+def p2p_bytes(n, k, dim) -> int:
+    """The pairs read once, the moments, ``dT`` and the rms written once."""
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import n_moments
+    return n * (dim + k * dim + k) * 4 + n_moments(dim) * 8 \
+        + (dim + 1) ** 2 * 4 + 4
+
+
+def p2p_f64_ops(n, k, dim) -> int:
+    """float64 operations of the moments: per pair w p (D), w q (D),
+    (w p) q^T (D^2), the sums (1 + 2D + D^2 + 1), p - q (D), |.|^2 (2D - 1),
+    w |.|^2 (1)."""
+    per_pair = dim + dim + dim * dim + (2 + 2 * dim + dim * dim) + dim \
+        + (2 * dim - 1) + 1
+    return n * k * per_pair
+
+
+def p2p_step_case(rng):
+    """``p2p_step`` (``csrc/kabsch.cu``) at the point-to-point drive's shape
+    (49,152 rows, k = 1) and at k = 3 (3-D), and a 2-D case: the kernel's
+    float64 moments within 1e-12 of the plain version's, relative to the
+    sums of the terms' absolute values (only the order of the sums
+    differs); two launches' moments bit for bit (no atomics); the solve
+    stage bit for bit given the same moments (the fused launch's own, and
+    the solve-from-moments kernel); ``dT`` within 1e-6 of the plain
+    version's; R within 1e-5 of a float64 SVD of the float64 moments.
+    Then the launch timed beside the plain version (no single PyTorch call
+    computes the function); the device time inside a solve graph's replay
+    comes from the profile phase."""
+    from norlab_icp_mapper_tpu_torch.ops import kabsch as K
+    dev = torch.device("cuda")
+    before = (K.p2p_step.launches, K.kabsch.launches)
+    worst, timed = 0.0, None
+    for n, k, dim in ((SCAN_CAPACITY, 1, 3), (SCAN_CAPACITY, 3, 3),
+                      (SCAN_CAPACITY, 1, 2), (1001, 3, 3)):
+        p, q, w = p2p_pairs(rng, n, k, dim, dev)
+        m_k, dT_k, rms_k = K._p2p_kernel(p, q, w, solve=True)
+        m_k2 = K.p2p_moments(p, q, w)
+        m_p = K.p2p_moments_plain(p, q, w)
+        dT_p, rms_p = K.p2p_step_plain(p, q, w)
+        dT_s, rms_s = K.solve_moments_plain(m_k, dim)
+        dT_m, rms_m = K.kabsch_from_moments(m_k, dim)
+        # the scale of the rounding: the sums of the terms' absolute values
+        size = K.p2p_moments_plain(p.abs(), q.abs(), w)
+        size[-1] = m_p[-1]
+        torch.cuda.synchronize()
+        rel = float(((m_k - m_p).abs() / size.clamp(min=1e-300)).max())
+        err = float((dT_k - dT_p).abs().max())
+        worst = max(worst, err)
+        m64 = m_p.cpu().numpy()
+        wsum = max(m64[0], 1e-9)
+        sp, sq = m64[1:1 + dim], m64[1 + dim:1 + 2 * dim]
+        H = m64[1 + 2 * dim:1 + 2 * dim + dim * dim].reshape(dim, dim) \
+            - np.outer(sp, sq) / wsum
+        U, _, Vt = np.linalg.svd(H)
+        D = np.eye(dim)
+        D[-1, -1] = np.linalg.det(Vt.T @ U.T)
+        R64 = Vt.T @ D @ U.T
+        rec = {"phase": "kernel_case", "case": f"p2p_step_n{n}_k{k}_D{dim}",
+               "kernel": "p2p_step", "moments_max_rel_err": rel,
+               "moments_deterministic": bool(torch.equal(m_k, m_k2)),
+               "solve_bit_identical_plain": bool(
+                   torch.equal(dT_k, dT_s) and torch.equal(rms_k, rms_s)),
+               "solve_from_moments_bit_identical_plain": bool(
+                   torch.equal(dT_m, dT_s) and torch.equal(rms_m, rms_s)),
+               "dT_max_abs_err_plain": err,
+               "rms_abs_err_plain": float((rms_k - rms_p).abs()),
+               "R_max_abs_diff_svd_float64": float(np.abs(
+                   dT_k[:dim, :dim].cpu().numpy() - R64).max())}
+        emit(rec)
+        check(rel <= 1e-12 and rec["moments_deterministic"],
+              f"p2p_step: moments off the plain version's: {rec}")
+        check(rec["solve_bit_identical_plain"]
+              and rec["solve_from_moments_bit_identical_plain"],
+              f"p2p_step: the solve differs from its plain version: {rec}")
+        check(err <= 1e-6 and rec["rms_abs_err_plain"] <= 1e-6,
+              f"p2p_step: dT off the plain version's: {rec}")
+        check(rec["R_max_abs_diff_svd_float64"] < 1e-5,
+              f"p2p_step: R off the float64 SVD's: {rec}")
+        if timed is None:
+            timed = (n, k, dim, (p, q, w))
+    n, k, dim, args = timed
+    ms = time_cuda(lambda: K.p2p_step(*args))
+    plain_ms = time_cuda(lambda: K.p2p_step_plain(*args), reps=7, warmup=1)
+    K.p2p_step.launches, K.kabsch.launches = before
+    bytes_moved = p2p_bytes(n, k, dim)
+    ops = p2p_f64_ops(n, k, dim)
+    ops_ms = ops / PEAK_F64_FLOPS * 1e3 + kabsch_ops(dim) / PEAK_F32_FLOPS \
+        * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": "p2p_step_timed",
+          "kernel": "p2p_step", "n": n, "k": k, "dim": dim,
+          "kernel_ms": ms, "plain_ms": plain_ms, "bytes": bytes_moved,
+          "f64_operations": ops, "bound_ops_ms": ops_ms,
+          "bound_bytes_ms": bytes_ms})
+    return {"name": "p2p_step", "route": "cuda",
+            "source": "norlab_icp_mapper_tpu_torch/csrc/kabsch.cu",
+            "replaces": "icp/engine.py:548", "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
 def while_node_case():
-    """The WHILE node of ``csrc/graph_loop.cu`` (its condition kernel and
-    the node) around a body of one increment, 1,000 iterations, against the
-    same body under a Python loop that reads the condition before each
-    iteration (what the CPU path does).  Its tensors are the main path's:
-    a 0-d int32 counter and a 0-d bool stop flag."""
+    """The WHILE node of ``csrc/graph_loop.cu`` around a body of one
+    ``loop_commit`` (the identity increment, no checker: the counter runs
+    out) that sets the node's condition, 1,000 iterations, against the same
+    body under a Python loop that reads the condition before each iteration
+    (what the CPU path does).  Its tensors are the main path's: a 0-d int32
+    counter, a 0-d bool stop flag, the 4x4 transform, the window, the
+    overlap."""
     from norlab_icp_mapper_tpu_torch.ops import graph_loop
     dev = torch.device("cuda")
     n_iter = 1000
+    before = graph_loop.loop_commit.launches
     it = torch.zeros((), dtype=torch.int32, device=dev)
     stop = torch.zeros((), dtype=torch.bool, device=dev)
+    eye = torch.eye(4, device=dev)
+    T = eye.clone()
+    hist = torch.zeros((1, 2), device=dev)
+    ov_new = torch.ones((), device=dev)
+    ov = torch.zeros((), device=dev)
+
+    def commit(body=None):
+        graph_loop.loop_commit(eye, T, it, stop, hist, ov_new, ov,
+                               max_iter=n_iter, body=body)
+    commit()  # the library is loaded before the capture
     body_stream, pool = torch.cuda.Stream(), torch.cuda.MemPool()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(torch.cuda.Stream()):
         graph.capture_begin(capture_error_mode="thread_local")
         try:
             it.zero_()
-            with graph_loop.while_node(it, stop, n_iter, body_stream, pool):
-                it.add_(1)
+            with graph_loop.while_node(it, stop, n_iter, body_stream,
+                                       pool) as body:
+                commit(body)
         finally:
             graph.capture_end()
 
     def plain():
         it.zero_()
         while not bool(stop) and int(it) < n_iter:
-            it.add_(1)
+            commit()
 
     # graph.replay(), not graph_loop.replay(): these launches do not count
     graph.replay()
@@ -1554,12 +1938,14 @@ def while_node_case():
     want = int(it)
     ms = time_cuda(graph.replay)
     plain_ms = time_cuda(plain, reps=3, warmup=1)
-    # per iteration the condition kernel reads the counter and the flag, the
-    # body reads and writes the counter; no arithmetic to speak of
-    bytes_moved = n_iter * (4 + 1 + 4 + 4)
+    graph_loop.loop_commit.launches = before
+    # per iteration the commit reads dT, T, it, stop, the window and both
+    # overlaps and writes T, it, stop, the window and the overlap
+    bytes_moved = n_iter * ((2 * 64 + 4 + 1 + 8 + 8) + (64 + 4 + 1 + 8 + 4))
     bound_ms = bytes_moved / PEAK_BYTES * 1e3
     emit({"phase": "kernel_case", "case": "while_node_1000",
-          "kernel": "graph_while", "iterations_node": got,
+          "kernel": "graph_while", "body": "one loop_commit",
+          "iterations_node": got,
           "iterations_plain": want, "kernel_ms": ms,
           "us_per_iteration": ms * 1e3 / n_iter, "plain_ms": plain_ms,
           "bound_bytes_ms": bound_ms,
@@ -1630,7 +2016,7 @@ def reset_counts():
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
-    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch, p2p_step
     from norlab_icp_mapper_tpu_torch.ops.philox import philox_uniform
     sweep_knn.launches = 0
     sweep_knn.launches_by_shape = {}
@@ -1639,7 +2025,7 @@ def reset_counts():
     knn.launches = 0
     knn.launches_by_shape = {}
     graph_loop.replay.launches = 0
-    for f in (kabsch, philox_uniform):
+    for f in (kabsch, p2p_step, philox_uniform, graph_loop.loop_commit):
         f.launches = 0
         f.launches_by_shape = {}
 
@@ -1650,7 +2036,7 @@ def read_counts():
     from norlab_icp_mapper_tpu_torch.ops.nn_sweep import sweep_knn
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
-    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch
+    from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch, p2p_step
     from norlab_icp_mapper_tpu_torch.ops.philox import philox_uniform
     out = {f"sweep_knn[D={d},k={k}]": v
            for (d, k), v in sweep_knn.launches_by_shape.items()}
@@ -1662,7 +2048,9 @@ def read_counts():
     out["knn_brute"] = knn.launches
     out["graph_while"] = graph_loop.replay.launches  # solve graph replays
     out["kabsch"] = kabsch.launches
+    out["p2p_step"] = p2p_step.launches
     out["philox"] = philox_uniform.launches
+    out["loop_commit"] = graph_loop.loop_commit.launches
     return out
 
 
@@ -1767,6 +2155,19 @@ def drive(config_name, scans, priors, phase, strict=False, online=False,
     return mapper, rec
 
 
+# The solve per ICP iteration before the commit was one kernel and the
+# point-to-point minimizer one launch (NVIDIA H100 80GB HBM3, 700 W; the
+# solve phase's CUDA events over the steady scans, and torch.profiler's
+# device launches over one steady scan or one sharded solve graph),
+# printed beside this run's
+EAGER_COMMIT_SOLVE = {
+    "p2plane": {"solve_ms_per_iteration": [0.843, 0.880],
+                "device_launches_per_steady_scan": 3824},
+    "p2point": {"solve_ms_per_iteration": [0.854, 0.933]},
+    "sharded": {"solve_graph_ms": 18.91,
+                "device_launches_per_steady_scan": 7125},
+}
+
 # Final map sizes and iterations per scan on this sequence (seed 0) before
 # the solve became a CUDA graph and the loop pipelined (the eager loop);
 # the gates hold the new loop to them.
@@ -1813,6 +2214,21 @@ def hold_graph_solve(mapper, phase):
     check(same and it_g == it_l,
           f"{phase}: the graph solve differs from its body's Python loop "
           f"({it_g} against {it_l} iterations, T equal: {same})")
+    # the solve graph's replay measured in the profile phase, beside one
+    # body of the same loop run eagerly (its device launches)
+    body = engine._Loop(*args, step_filters=step, draws=mapper.draws,
+                        solve_index=torch.full(
+                            (), icp.last_solve_index, dtype=torch.int64,
+                            device="cuda"), **icp.solve_config())
+    body.start()
+
+    def recapture():
+        for g in icp._graphs.values():
+            g.close()
+        icp._graphs.clear()
+    PROFILE_JOBS.append(("solve", phase, (
+        lambda: icp.solve(*args, draws=mapper.draws), body.body,
+        body.body_len, None, recapture), None))
 
 
 def free_running(config, scans, priors, online=False):
@@ -1860,6 +2276,9 @@ def check_graph_launches(phase, launches, n_scans):
     check(launches["graph_while"] == n_scans - 1,
           f"{phase}: {launches['graph_while']} solve graph replays for "
           f"{n_scans - 1} registered scans")
+    check(launches["loop_commit"] >= n_scans - 1,
+          f"{phase}: {launches['loop_commit']} iteration commits on the "
+          f"card for {n_scans - 1} solves")
 
 
 def check_sync(rec):
@@ -3480,6 +3899,7 @@ def hold_sharded_graph(mapper, scan, prior):
                      f"loop: {rec}")
     check(0 < rec["iterations_live"] < sh.cfg.max_iter,
           f"sharded: the solve did not stop on its checkers: {rec}")
+    return lambda: step.icp_solve(*args, draws=sh.draws)
 
 
 def sharded_config(name="config_p2plane.yaml", point_distance=False,
@@ -3914,7 +4334,7 @@ def phase_sharded(scans, poses, priors, p2_rec):
         check(rec["solve_graph_captures"] >= 1
               and main_launch["graph_while"] == 0,
               f"sharded: the solve was not the unrolled graph: {rec}")
-        hold_sharded_graph(mapper, scans[-1], priors[-1])
+        sharded_solve = hold_sharded_graph(mapper, scans[-1], priors[-1])
         check(backend == "nccl", f"sharded: backend {backend}, not NCCL")
         check(rec["recovered_ate_m"] <= ate_gate,
               f"sharded: ATE {rec['recovered_ate_m']} m above {ate_gate}")
@@ -3961,8 +4381,10 @@ def phase_sharded(scans, poses, priors, p2_rec):
               f"{prec['reads_in_steady_process_input']}")
         check("point_to_point" not in prec["waits"],
               f"sharded p2point: the moments went to the host: {prec}")
-        check(prec["launches"]["kabsch"] >= n_p - 1,
-              f"sharded p2point: Kabsch not on the card: {prec['launches']}")
+        check(prec["launches"]["kabsch"] >= n_p - 1
+              and prec["launches"]["p2p_step"] >= n_p - 1,
+              f"sharded p2point: the moments or the solve not on the card: "
+              f"{prec['launches']}")
         # the unbounded matcher: knn_brute on the block
         umapper, _, urec = sharded_drive(
             mesh, sharded_config(unbounded=True), scans[:4], priors[:4],
@@ -4025,6 +4447,9 @@ def phase_sharded(scans, poses, priors, p2_rec):
             # the eigensolve of the halo covariances
             "sym_eig[D=3]": main_launch["sym_eig[D=3]"],
             "kabsch": prec["launches"]["kabsch"],
+            "p2p_step": prec["launches"]["p2p_step"],
+            "loop_commit": (main_launch["loop_commit"]
+                            + prec["launches"]["loop_commit"]),
         }
 
         # ---- two gloo ranks on the one card
@@ -4080,11 +4505,12 @@ def phase_sharded(scans, poses, priors, p2_rec):
         # with the process, so this comes last, before the profile phase)
         import norlab_icp_mapper_tpu_torch as nt
         feeds = {}
-        for label, kw in (("single_device", {}),
-                          ("sharded", {"mesh": mesh,
-                                       "sharded_options": SHARDED_OPTIONS})):
-            mm = nt.Mapper(sharded_config(), is_3d=True, device="cuda",
-                           seed=0, **kw)
+        for label, cfg_, kw in (
+                ("single_device", sharded_config(), {}),
+                ("p2point", {"icp": p2point_icp(False)}, {}),
+                ("sharded", sharded_config(),
+                 {"mesh": mesh, "sharded_options": SHARDED_OPTIONS})):
+            mm = nt.Mapper(cfg_, is_3d=True, device="cuda", seed=0, **kw)
             it = iter(range(len(scans)))
 
             def feed(mm=mm, it=it):
@@ -4100,7 +4526,20 @@ def phase_sharded(scans, poses, priors, p2_rec):
         emit({"phase": "sharded", "drive": "device_launches_per_scan",
               "counted_by": "torch.profiler device events, one steady scan "
                             "drained (the fourth and fifth scans)",
-              **feeds})
+              "single_device_and_p2point_unsharded": True, **feeds})
+        prof = solve_device_profile(
+            sharded_solve, iterations=mapper._sharded.cfg.max_iter)
+        emit({"phase": "sharded", "drive": "solve_graph_device",
+              "counted_by": "CUDA events and torch.profiler around one "
+                            "replay of the last scan's solve graph; per "
+                            "device iteration (all max_iter, the masked "
+                            "tail included)",
+              **(prof or {})})
+        SHARDED_SOLVE.update(prof or {})
+        SHARDED_SOLVE["steady_scan_device_launches"] = dict(feeds)
+        check(prof is not None and "loop_commit" in prof["kernels"],
+              f"sharded: no commit kernel in the solve graph's replay: "
+              f"{prof}")
         # NCCL destroys no communicator while a graph that captured its
         # collectives lives: every sharded mapper frees its solve graphs
         for m_ in (mapper, gmapper, pmapper, umapper, imapper, mm):
@@ -4266,12 +4705,15 @@ def main() -> int:
                                    {"icp": p2point_icp(False)}, "p2point",
                                    strict_solve=True)
     pp_launch = rec["launches"]
+    pp_rec = rec
     finish_no_radius_phase(mapper, rec, priors, poses)
     check_solve_sync(rec)
     check_graph_launches("p2point", pp_launch, n_pp)
-    check(pp_launch["kabsch"] >= sum(rec["icp_iterations"][1:])
+    check(pp_launch["p2p_step"] >= sum(rec["icp_iterations"][1:])
+          and pp_launch["loop_commit"] >= sum(rec["icp_iterations"][1:])
           and pp_launch["philox"] > 0,
-          f"p2point: Kabsch or the step draws not on the card: {pp_launch}")
+          f"p2point: the minimizer, the commit or the step draws not on "
+          f"the card: {pp_launch}")
     hold_graph_solve(mapper, "p2point")
     mapper, rec, _ = drive_default(scans[:4], priors[:4],
                                    {"icp": p2point_icp(True)},
@@ -4302,7 +4744,48 @@ def main() -> int:
     sh_launch, sh_entries = phase_sharded(scans, poses, priors, p2_rec)
     entries += sh_entries
 
-    phase_profile()
+    prof = phase_profile()
+    solve_dev = prof["solve_device"]
+    feeds = SHARDED_SOLVE.get("steady_scan_device_launches", {})
+    rows = {}
+    for ph, phase_rec, feed in (("p2plane", p2_rec, "single_device"),
+                                ("p2point", pp_rec, "p2point")):
+        r = solve_dev.get(ph) or {}
+        rows[ph] = {
+            "solve_ms_per_iteration_phase_events": phase_rec.get(
+                "ms_per_gn_iteration", phase_rec.get("ms_per_icp_iteration")),
+            **{k: r.get(k) for k in (
+                "replay_ms_per_iteration", "device_ms_per_iteration",
+                "device_launches_per_iteration",
+                "eager_body_launches_per_iteration")},
+            "device_launches_per_steady_scan": feeds.get(feed)}
+    rows["sharded"] = {k: SHARDED_SOLVE.get(k) for k in (
+        "replay_ms", "replay_ms_per_iteration", "device_ms",
+        "device_ms_per_iteration", "device_launches_per_iteration")}
+    rows["sharded"]["device_launches_per_steady_scan"] = feeds.get("sharded")
+    emit({"phase": "solve_device_per_iteration",
+          "counted_by": "solve ms: the solve phase's CUDA events over the "
+                        "steady scans; replay ms: CUDA events around one "
+                        "replay of the phase's last solve graph; device ms "
+                        "and launches per iteration: torch.profiler over "
+                        "that replay (the graph captured anew after a first "
+                        "profiler session; also one body run eagerly); per "
+                        "steady scan: torch.profiler over one drained "
+                        "scan",
+          "rows": rows, "before_one_commit_kernel": EAGER_COMMIT_SOLVE})
+    for ph, kernel in (("p2plane", "loop_commit"), ("p2point", "p2p_step"),
+                       ("p2point", "loop_commit"),
+                       ("p2plane_step", "philox")):
+        r = solve_dev.get(ph)
+        check(r is not None and kernel in r["kernels"],
+              f"{ph}: {kernel} not in the solve graph's replay: {r}")
+    for e in entries:
+        in_replay = {ph: r["kernels"][e["name"]]["mean_device_ms"]
+                     for ph, r in list(solve_dev.items())
+                     + [("sharded", SHARDED_SOLVE)]
+                     if r and e["name"] in r.get("kernels", {})}
+        if in_replay:
+            e["device_ms_in_replay"] = in_replay
 
     # ---- the kernels line: launches are the main paths' (every phase that
     # drives a Mapper, the pose graph's refinement, the CLI, the

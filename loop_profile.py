@@ -4,10 +4,12 @@
     python3 loop_profile.py [--root DIR] [--seed 0] [--probe] [--out DIR]
 
 Drives the port's ``Mapper`` through the synthetic sequence of
-``chip_smoke.py`` (18 scans of 49,152 rays, seed ``--seed``) in three
+``chip_smoke.py`` (18 scans of 49,152 rays, seed ``--seed``) in four
 configs -- ``identity`` (examples/config.yaml), ``p2plane``
-(examples/config_p2plane.yaml, perturbed priors) and ``default``
-(``Mapper(None)``, the same priors) -- and prints one JSON line per config:
+(examples/config_p2plane.yaml, perturbed priors), ``default``
+(``Mapper(None)``, the same priors) and ``p2point`` (the default with
+``chip_smoke.py``'s point-to-point ``icp:`` section, the same priors) --
+and prints one JSON line per config:
 
   step_locked_ms_per_scan  host clock around apply_input_filters +
                            process_input + drain(), steady scans (2-17)
@@ -68,17 +70,25 @@ def probe():
     done = torch.zeros((), dtype=torch.bool, device=dev)
     x = torch.linspace(-1.0, 1.0, 4096, device=dev)
     x0 = x.clone()
+    # the commit's state: the identity increment, no checker, so the loop
+    # ends when the counter runs out
+    eye = torch.eye(4, device=dev)
+    T, hist = eye.clone(), torch.zeros((1, 2), device=dev)
+    ov_new, ov = torch.ones((), device=dev), torch.zeros((), device=dev)
 
-    def body():
+    def commit(counter, flag, max_iter, wb):
+        graph_loop.loop_commit(eye, T, counter, flag, hist, ov_new, ov,
+                               max_iter=max_iter, body=wb)
+
+    def body(wb=None):
         y = torch.sort(torch.sin(x * 3.0)).values
         m = y[:36].view(6, 6)
         a = m @ m.T + 6.0 * torch.eye(6, device=dev)
         s = torch.linalg.solve_ex(a, y[100:106]).result
         j = torch.searchsorted(y, y[2048:2050])
         step = s.sum() * 1e-3 + y.index_select(0, j[:1])[0] * 1e-4
-        x.copy_(torch.where(done, x, x + step))
-        it.copy_(it + (~done).to(torch.int32))
-        done.copy_(done | (it >= 7))
+        x.copy_(torch.where(~done & (it < 7), x + step, x))
+        commit(it, done, 7, wb)  # it += active; the node's condition
 
     def reset():
         x.copy_(x0)
@@ -86,7 +96,7 @@ def probe():
         done.zero_()
 
     reset()
-    while not bool(done):
+    while not bool(done) and int(it) < 7:
         body()
     want_x, want_it = x.clone(), int(it)
     out = {"phase": "probe",
@@ -108,8 +118,9 @@ def probe():
         graph.capture_begin(capture_error_mode="thread_local")
         try:
             reset()
-            with graph_loop.while_node(it, done, 100, body_stream, pool):
-                body()
+            with graph_loop.while_node(it, done, 7, body_stream,
+                                       pool) as wb:
+                body(wb)
         finally:
             graph.capture_end()
     x.fill_(123.0)
@@ -118,7 +129,8 @@ def probe():
     out["while_node_iterations"] = int(it)
     out["while_node_bit_identical"] = bool(torch.equal(x, want_x)) \
         and int(it) == want_it
-    # the node's own cost: an empty-ish body of one kernel, 1000 times
+    # the node's own cost: a body of one kernel (the commit that counts
+    # and sets the condition), 1000 times
     n = torch.zeros((), dtype=torch.int32, device=dev)
     stop = torch.zeros((), dtype=torch.bool, device=dev)
     g2, pool2 = torch.cuda.CUDAGraph(), torch.cuda.MemPool()
@@ -126,8 +138,9 @@ def probe():
         g2.capture_begin(capture_error_mode="thread_local")
         try:
             n.zero_()
-            with graph_loop.while_node(n, stop, 1000, body_stream, pool2):
-                n.add_(1)
+            with graph_loop.while_node(n, stop, 1000, body_stream,
+                                       pool2) as wb:
+                commit(n, stop, 1000, wb)
         finally:
             g2.capture_end()
     g2.replay()
@@ -194,7 +207,8 @@ def engine_check(nt, name, cfg, scans, priors, cap):
 
 
 def make_mapper(nt, cfg):
-    path = None if cfg is None else os.path.join(HERE, cfg)
+    path = (None if cfg is None else cfg if isinstance(cfg, dict)
+            else os.path.join(HERE, cfg))
     m = nt.Mapper(path, is_3d=True, device="cuda", seed=0)
     m.timer.enabled = True
     return m
@@ -390,7 +404,8 @@ def main() -> int:
         print(smi, flush=True)
         return 0 if ok else 1
     recs = {}
-    for name, cfg in CONFIGS:
+    configs = CONFIGS + (("p2point", {"icp": cs.p2point_icp(False)}),)
+    for name, cfg in configs:
         priors = poses if name == "identity" else perturbed
         rec = {"phase": name, "config": cfg}
         rec.update(timed_runs(nt, cfg, scans, priors, cs.SCAN_CAPACITY))
@@ -400,7 +415,7 @@ def main() -> int:
         rec["blocking_reads_where"] = where
         recs[name] = rec
     # the profiler last: its hooks slow every later launch
-    for name, cfg in CONFIGS:
+    for name, cfg in configs:
         priors = poses if name == "identity" else perturbed
         recs[name]["profile"] = profile(nt, cfg, scans, priors,
                                         cs.SCAN_CAPACITY, args.out, name)

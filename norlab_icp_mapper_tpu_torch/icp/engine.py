@@ -22,10 +22,12 @@ the stop changes no bit.  On a CUDA device every solve -- any minimizer,
 with or without reading step filters -- is one CUDA graph
 (:class:`_SolveGraph`): the initial state, then a WHILE node
 (``ops/graph_loop.py``) whose body is ``rematch_every`` iterations; the
-host reads nothing until the caller wants the result.  Point-to-point takes
-its rigid increment from ``ops/kabsch.py`` on the device; the step filters
-draw keyed uniforms (``draws.KeyedDraws``, ``ops/philox.py``) counted by
-the loop's device ``it``.  Graphs are cached per configuration, step chain,
+host reads nothing until the caller wants the result.  Each iteration
+commits its state in one ``loop_commit``, which on the body's last
+iteration also sets the node's condition.  Point-to-point goes from the
+pairs to its rigid increment in one ``p2p_step`` (``ops/kabsch.py``); the
+step filters draw keyed uniforms (``draws.KeyedDraws``, ``ops/philox.py``)
+counted by the loop's device ``it``.  Graphs are cached per configuration, step chain,
 seed and capacities.  On the CPU the same iteration runs under a Python
 loop that reads ``done`` before each iteration.  Correspondences are
 re-searched every ``rematch_every`` iterations (default 3,
@@ -56,7 +58,7 @@ import torch
 
 from .. import se3
 from ..draws import DrawSource
-from ..ops.kabsch import kabsch
+from ..ops.kabsch import kabsch, p2p_step
 from ..ops.philox import philox_uniform
 from ..points import PointBatch
 from ..filters.core import FilterChain
@@ -473,14 +475,6 @@ def _rot_angle_np(R: np.ndarray) -> float:
     return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
 
 
-def _rot_angle(R: torch.Tensor) -> torch.Tensor:
-    d = R.shape[0]
-    if d == 2:
-        return torch.abs(torch.atan2(R[1, 0], R[0, 0]))
-    c = torch.clamp((torch.trace(R) - 1.0) / 2.0, -1.0, 1.0)
-    return torch.acos(c)
-
-
 def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``x[i]`` for a 0-d index tensor, without reading ``i`` on the host
     (indexing with a 0-d tensor would)."""
@@ -602,59 +596,43 @@ class _Loop:
         return (self.T, self.overlap, self.it, self.rms, self.overflow)
 
     # --------------------------------------------------------- iteration
-    def iteration(self, j: int):
+    def iteration(self, j: int, body: Optional[graph_loop.WhileBody] = None):
         """One iteration of the loop, masked by ``active``; ``j`` is its
-        place in the body (0 searches correspondences)."""
-        d = self.dim
-        active = ~self.done & (self.it < self.max_iter)
+        place in the body (0 searches correspondences).  The commit is one
+        ``loop_commit`` (a kernel on the card); ``body``, the WHILE node's
+        body that this iteration ends, gets its condition from it."""
         p = se3.apply_points(self.T, self.read)  # [N, D]
         fresh = j == 0 or not self.reuse
         if fresh:
             self.corr = self._match_and_weigh(p)
-        q, qn, w, overlap, overflow = self.corr
+        p_matched, q, qn, w, overlap, overflow = self.corr
+        if not self.reuse:
+            # the step filters may move points (voxel centroids): without
+            # reuse the minimizer sees the positions the pairs were matched
+            # from, as the JAX body does
+            p = p_matched
         rms = None
         if self.identity:
             dT = self.eye
         elif self.p2p:
-            dT, rms = self._minimize_point(p, q, w)
+            dT, rms = p2p_step(p, q, w)
         else:
             dT, rms = self._minimize_plane(p, q, qn, w)
-        T_new = dT @ self.T
-        new_done = torch.full((), self.identity, dtype=torch.bool,
-                              device=self.dev)
-        # differential checker: rolling window of increment magnitudes
-        step = torch.stack([torch.linalg.norm(dT[:d, d]),
-                            _rot_angle(dT[:d, :d])])
-        hist = torch.cat([step[None], self.hist[:-1]])
-        if self.diff_checker is not None:
-            min_t, min_r, smooth_len = self.diff_checker
-            means = hist.mean(dim=0)
-            new_done = new_done | ((self.it + 1 >= smooth_len)
-                                   & (means[0] < min_t) & (means[1] < min_r))
-        if self.bound_checker is not None:
-            # the bound is on the total transform so far; the loop stops
-            # here and the engine's caller raises (see ICPEngine.__call__)
-            max_rot, max_trans = self.bound_checker
-            new_done = new_done | (
-                (_rot_angle(T_new[:d, :d]) > max_rot)
-                | (torch.linalg.norm(T_new[:d, d]) > max_trans))
-        # commit: after the stop every tensor keeps its bits
-        self.T.copy_(torch.where(active, T_new, self.T))
-        self.hist.copy_(torch.where(active, hist, self.hist))
-        self.overlap.copy_(torch.where(active, overlap, self.overlap))
-        if rms is not None:
-            self.rms.copy_(torch.where(active, rms, self.rms))
-        if fresh:
-            self.overflow.add_(torch.where(active, overflow,
-                                           torch.zeros_like(overflow)))
-        self.done.copy_(torch.where(active, new_done, self.done))
-        self.it.add_(active.to(torch.int32))
+        graph_loop.loop_commit(
+            dT, self.T, self.it, self.done, self.hist, overlap, self.overlap,
+            max_iter=self.max_iter, rms_new=rms,
+            rms=None if rms is None else self.rms,
+            overflow_new=overflow if fresh else None,
+            overflow=self.overflow if fresh else None,
+            identity=self.identity, diff_checker=self.diff_checker,
+            bound_checker=self.bound_checker, body=body)
 
-    def body(self):
+    def body(self, while_body: Optional[graph_loop.WhileBody] = None):
         """One run of the WHILE node's body: ``body_len`` iterations, the
-        first of which searches correspondences."""
+        first of which searches correspondences; the last sets the
+        condition of ``while_body``."""
         for j in range(self.body_len):
-            self.iteration(j)
+            self.iteration(j, while_body if j == self.body_len - 1 else None)
 
     def run(self):
         """The loop under Python: ``done`` is read before every iteration.
@@ -685,8 +663,9 @@ class _Loop:
 
     def _match_and_weigh(self, p):
         """Correspondences of the moved reading and their outlier weights:
-        ``(q [N,k,D], qn [N,k,D], w [N,k], overlap, overflow)`` on the
-        reading's device."""
+        ``(p [N,D], q [N,k,D], qn [N,k,D], w [N,k], overlap, overflow)`` on
+        the reading's device, ``p`` the positions matched from (the
+        stepped ones, in the solve's row order)."""
         f32 = torch.float32
         cur_mask = self.mask
         if self.step_filters is not None:
@@ -745,7 +724,7 @@ class _Loop:
         q = self.ref_pos[safe]  # [N, k, D]
         matched = torch.any(idx >= 0, dim=1) & cur_mask
         overlap = matched.to(f32).sum() / self.n_valid
-        return q, qn, w, overlap, overflow
+        return p, q, qn, w, overlap, overflow
 
     def _minimize_plane(self, p, q, qn, w):
         """Weighted point-to-plane Gauss-Newton step on the reading's
@@ -779,22 +758,6 @@ class _Loop:
         dx = -torch.linalg.solve_ex(JtJ, Jtr).result
         dT = se3.exp_se3(dx) if self.dim == 3 else se3.exp_se2(dx)
         return dT, torch.sqrt(wrr / wsum)
-
-    def _minimize_point(self, p, q, w):
-        """Weighted Kabsch on the reading's device: the weighted means and
-        the centred cross-covariance of the pairs, then the rigid increment
-        from ``ops/kabsch.py`` (the JAX package's SVD form, with no host
-        read).  Returns ``dT`` and the rms residual of the weighted pairs."""
-        wk = w[..., None]
-        wsum = torch.clamp(torch.sum(w), min=1e-9)
-        mu_p = torch.sum(wk * p[:, None, :], dim=(0, 1)) / wsum
-        mu_q = torch.sum(wk * q, dim=(0, 1)) / wsum
-        P = (p[:, None, :] - mu_p) * wk
-        Q = q - mu_q
-        H = torch.einsum("nkd,nke->de", P, Q)  # [D, D]
-        diff = p[:, None, :] - q
-        wdd = torch.sum(w * torch.sum(diff * diff, -1))
-        return kabsch(H, mu_p, mu_q), torch.sqrt(wdd / wsum)
 
 
 def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
@@ -833,7 +796,8 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
 # --------------------------------------------------------------------------
 
 # the kernel wrappers a solve launches
-_COUNTED = (sweep_knn, knn, kabsch, philox_uniform)
+_COUNTED = (sweep_knn, knn, kabsch, p2p_step, philox_uniform,
+            graph_loop.loop_commit)
 
 
 def _counters():
@@ -909,15 +873,16 @@ class _SolveGraph:
         warm = _counters()
         self.graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.Stream()
-        with torch.cuda.stream(capture):
+        with torch.cuda.stream(capture), graph_loop.no_gc():
             # thread_local: a map-update thread may use the card meanwhile
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.loop.start()
                 with graph_loop.while_node(self.loop.it, self.loop.done,
                                            self.loop.max_iter,
-                                           self._body_stream, self._pool):
-                    self.loop.body()
+                                           self._body_stream,
+                                           self._pool) as while_body:
+                    self.loop.body(while_body)
             finally:
                 self.graph.capture_end()
         captured = _counters()

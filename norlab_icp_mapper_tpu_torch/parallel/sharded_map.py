@@ -92,7 +92,8 @@ from ..map import (BUFFER_SIZE, CELL_SIZE, _to_inferior_grid,
                    collect_cells_in_bounds)
 from ..mapper_modules.core import _spherical_angles, dynamic_points_bayes
 from ..ops.eigen import sym_eig2_smallest, sym_eig3_smallest
-from ..ops.kabsch import kabsch
+from ..ops.graph_loop import loop_commit, no_gc
+from ..ops.kabsch import kabsch_from_moments, p2p_moments
 from ..ops.nn import nn1
 from ..ops.nn_sweep import presort_ref, sweep_knn
 from ..ops.pca import radius_pca
@@ -1000,8 +1001,6 @@ class _ShardedLoop:
         """One iteration, masked by ``active``; ``j`` is its place in the
         rematch period (0 re-matches)."""
         cfg = self.cfg
-        dim = cfg.dim
-        active = ~self.done & (self.it < cfg.max_iter)
         p = se3.apply_points(self.T, self.read)
         fresh = j == 0 or self.corr is None
         if fresh:
@@ -1011,45 +1010,22 @@ class _ShardedLoop:
             dT, rms = self._point_to_point(p, q, w)
         else:
             dT, rms = self._point_to_plane(p, q, qn, w)
-        dtrans = torch.linalg.norm(dT[:dim, dim])
-        if dim == 3:
-            drot = torch.acos(torch.clamp(
-                (torch.trace(dT[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
-        else:
-            drot = torch.abs(torch.atan2(dT[1, 0], dT[0, 0]))
-        hist_new = torch.cat([torch.stack([dtrans, drot])[None],
-                              self.hist[:-1]])
-        done_new = torch.zeros((), dtype=torch.bool, device=self.dev)
-        if cfg.diff_checker is not None:
-            min_t, min_r, smooth = cfg.diff_checker
-            done_new = ((self.it + 1 >= smooth)
-                        & (hist_new[:, 0].mean() < min_t)
-                        & (hist_new[:, 1].mean() < min_r))
-        T_new = dT @ self.T
-        if cfg.bound_checker is not None:
-            max_rot, max_trans = cfg.bound_checker
-            if dim == 3:
-                rot_tot = torch.acos(torch.clamp(
-                    (torch.trace(T_new[:3, :3]) - 1.0) / 2.0, -1.0, 1.0))
-            else:
-                rot_tot = torch.abs(torch.atan2(T_new[1, 0], T_new[0, 0]))
-            done_new = done_new | (rot_tot > max_rot) | (
-                torch.linalg.norm(T_new[:dim, dim]) > max_trans)
-        # commit: after the stop every tensor keeps its bits
         if cfg.inspect:
+            active = ~self.done & (self.it < cfg.max_iter)
             row = torch.clamp(self.it, max=self.ihist.shape[0] - 1
                               ).to(torch.int64).reshape(1)
             old = self.ihist.index_select(0, row)
             new = torch.stack([ov, rms])[None]
             self.ihist.index_copy_(0, row, torch.where(active, new, old))
-        if fresh and overflow is not None:
-            self.overflow.add_(torch.where(active, overflow,
-                                           torch.zeros_like(overflow)))
-        self.T.copy_(torch.where(active, T_new, self.T))
-        self.overlap.copy_(torch.where(active, ov, self.overlap))
-        self.hist.copy_(torch.where(active, hist_new, self.hist))
-        self.done.copy_(torch.where(active, done_new, self.done))
-        self.it.add_(active.to(torch.int32))
+        # the rest of the commit in one loop_commit (a kernel on the card;
+        # no WHILE node here, so it sets no condition)
+        add = fresh and overflow is not None
+        loop_commit(dT, self.T, self.it, self.done, self.hist, ov,
+                    self.overlap, max_iter=cfg.max_iter,
+                    overflow_new=overflow if add else None,
+                    overflow=self.overflow if add else None,
+                    diff_checker=cfg.diff_checker,
+                    bound_checker=cfg.bound_checker)
 
     # ------------------------------------------------------------- pieces
     def _match_pairs(self, p):
@@ -1104,20 +1080,11 @@ class _ShardedLoop:
         return q, qn, w, overlap, overflow
 
     def _point_to_point(self, p, q, w):
-        """The weighted cross moments in one reduction, then the rigid
-        increment on the device (``ops/kabsch.py``); ``H = S_pq - S_p
-        S_q^T / wsum`` is the centred cross-covariance."""
-        dim = self.cfg.dim
-        sse = torch.sum(w * torch.sum((p - q) ** 2, dim=1))
-        pack = torch.cat([w.sum()[None], w @ p, w @ q,
-                          ((p * w[:, None]).T @ q).reshape(-1),
-                          sse[None]])
-        h = self.step._reduce(pack, SUM)
-        wsum = torch.clamp(h[0], min=1e-9)
-        Sp, Sq = h[1:1 + dim], h[1 + dim:1 + 2 * dim]
-        Spq = h[1 + 2 * dim:1 + 2 * dim + dim * dim].reshape(dim, dim)
-        H = Spq - torch.outer(Sp, Sq) / wsum
-        return kabsch(H, Sp / wsum, Sq / wsum), torch.sqrt(h[-1] / wsum)
+        """The pairs' float64 moments (one launch of ``ops/kabsch.py``'s
+        pair reduction), summed over the ranks in one reduction, then the
+        rigid increment and the rms from them (one launch)."""
+        m = p2p_moments(p, q[:, None, :], w[:, None])
+        return kabsch_from_moments(self.step._reduce(m, SUM), self.cfg.dim)
 
     def _point_to_plane(self, p, q, qn, w):
         dim = self.cfg.dim
@@ -1188,7 +1155,7 @@ class _ShardedSolveGraph:
                 loop.iteration(0)
         warm = _counters()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), no_gc():
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 loop.start()

@@ -494,6 +494,36 @@ def test_step_filters_with_injected_draws_on_the_sorted_path(rng, monkeypatch,
     assert len(asked) == -(-rt.iterations // rematch)
 
 
+@pytest.mark.parametrize("matcher", [{"knn": 1}, {"knn": 3, "maxDist": 1.0}],
+                         ids=["unbounded", "max_dist"])
+@pytest.mark.parametrize("rematch", [1, 3])
+def test_centroid_step_filter_moves_the_minimized_points(rng, monkeypatch,
+                                                         rematch, matcher):
+    """A step filter that moves points (``VoxelGrid`` with ``useCentroid``
+    replaces each voxel's points by their centroid): without reuse both
+    packages minimize on the stepped positions the pairs were matched
+    from; with reuse (rematch 3) on the moved reading, unstepped.  The
+    filter draws nothing, so T agrees within 1e-5 and the iterations are
+    equal, with and without ``maxDist`` (the sorted path).  The scene is
+    shifted off the 0.5 m voxel faces: its planes lie on them (the floor at
+    z = 0), where a last-bit difference of T moves a whole plane's points
+    into the next voxel."""
+    world, normals, off, reading = _scene(rng, 3)
+    shift = np.array([0.17, 0.11, 0.23], np.float32)
+    world, reading = world + shift, reading + shift
+    cfg = _config("PointToPlaneErrorMinimizer", {
+        "matcher": {"KDTreeMatcher": dict(matcher)},
+        "readingStepDataPointsFilters": [{"VoxelGridDataPointsFilter": {
+            "vSizeX": 0.5, "vSizeY": 0.5, "vSizeZ": 0.5,
+            "useCentroid": 1}}]})
+    rj, rt, _ = _run_both(cfg, world, normals, reading, 3, monkeypatch,
+                          rematch)
+    np.testing.assert_allclose(rt.correction.numpy(),
+                               np.asarray(rj.correction), atol=1e-5)
+    assert int(rj.iterations) == rt.iterations
+    assert abs(float(rj.residual) - float(rt.residual)) < 1e-5
+
+
 def test_step_filters_without_draws_on_the_sorted_path(rng, monkeypatch):
     """A step filter that draws nothing (a bounding box in the map frame),
     with ``maxDist``: the port's reading is sorted along x inside the solve,
