@@ -24,8 +24,11 @@ Phases:
             bit, and against a float64 SVD), ``p2p_step`` (49,152 rows at
             k = 1 and 3, 2-D: float64 moments within 1e-12, the solve bit
             for bit on the same moments, dT within 1e-6, R against a float64
-            SVD) and ``philox`` (49,152 rows and ragged lengths, bit for
-            bit)
+            SVD), ``philox`` (49,152 rows and ragged lengths, bit for
+            bit) and ``philox_keep`` (the keep bit of a RandomSampling
+            step filter on original rows: 49,152 rows and ragged lengths,
+            rows a permutation and none, prob 0.9, 0 and 1, a mask with
+            holes; bit for bit)
   identity  a Mapper on examples/config.yaml fed a synthetic lidar sequence,
             drained after every scan; the steady-state scans' filters and
             step run under ``torch.cuda.set_sync_debug_mode("error")``
@@ -50,7 +53,12 @@ Phases:
   p2plane_step  the p2plane config with a random step filter (prob 0.9),
             18 scans, steady scans under ``"error"``: graph against loop
             bit for bit, the last solve on the card against the CPU's with
-            the same keyed draws (1e-4), ATE below a third of the prior's
+            the same keyed draws (1e-4), its first pass's step mask (the
+            sorted reading, ``rows`` = the sort) against the permute path
+            bit for bit, ATE below a third of the prior's; then
+            ``p2plane_step_octree``, a random octree decimation in front of
+            the random step filter (the permute path, ``philox`` drawing
+            its priorities): graph against loop bit for bit, ATE
   tracing   the p2plane config again with the overflow sink installed
             (``utils.tracing``): steady scans without a blocking read, and
             ``overflow_totals()`` equal to the sum of the counts the passes
@@ -109,13 +117,17 @@ Phases:
             the identity map equal to one rank's voxel for voxel, both
             ranks' replicated state bit for bit, collective time per ICP
             iteration and halo bytes per merge; device launches per
-            steady scan beside the single-device Mapper's
+            steady scan beside the single-device Mapper's; point-to-point
+            with a random step filter (``p2point_step``): its first pass's
+            step mask against the permute path bit for bit
   profile   device time of the new kernels by name and device launches per
             stage, from ``torch.profiler`` (last: its hooks slow every later
             launch); each held phase's last solve graph replayed under it
             (device ms and launches per ICP iteration, the in-graph
             kernels' device time), then the ``solve_device_per_iteration``
-            line beside the numbers from before the commit kernel; then the
+            line beside the numbers from before the commit kernel; the
+            ``step_chain_launches`` line (the step chain's device launches
+            per matcher pass, both paths, and per steady scan); then the
             ``phase_split`` line: the SurfaceNormal radius branch stage by
             stage, ms between CUDA events and device launches
 
@@ -976,8 +988,10 @@ def count_device_launches(fn):
 
 
 IN_REPLAY_KERNELS = {"loop_commit": "loop_commit_kernel",
+                     "kabsch": "kabsch_kernel",
                      "p2p_step": "p2p_step_kernel",
-                     "philox": "philox_uniform_kernel"}
+                     "philox": "philox_uniform_kernel",
+                     "philox_keep": "philox_keep_kernel"}
 
 
 def solve_device_profile(replay, body=None, body_len=1, iterations=None,
@@ -1037,6 +1051,8 @@ def solve_device_profile(replay, body=None, body_len=1, iterations=None,
 
 PHASE_SPLIT = {}  # the phase_split record, waiting for its launch counts
 SHARDED_SOLVE = {}  # the sharded solve graph's numbers, for the summary
+SHARDED_STEP_PASS = {}  # the sharded step mask's launches per matcher pass
+SHARDED_STEP_SOLVE = {}  # the sharded point-to-point step solve's replay
 
 
 def phase_split(mp, knn, radius):
@@ -1427,6 +1443,7 @@ def phase_kernels(scans, poses, seed):
     entries.append(kabsch_case(rng))
     entries.append(p2p_step_case(rng))
     entries.append(philox_case())
+    entries.append(philox_keep_case())
     return entries
 
 
@@ -1598,6 +1615,88 @@ def philox_case():
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library_ms}
+
+
+KEEP_LENGTHS = (1, 3, 5, SCAN_CAPACITY - 1, SCAN_CAPACITY)
+KEEP_PROBS = (0.9, 0.0, 1.0)
+
+
+def philox_keep_case():
+    """``philox_keep_kernel`` against ``philox_keep_plain`` bit for bit on
+    the card (and against the CPU's plain version): at the reading's
+    capacity and ragged lengths, ``rows`` a random permutation and None,
+    ``prob`` 0.9, 0 and 1, a mask with holes.  Timed at the solve's shape
+    (49,152 rows, a permutation, prob 0.9) beside the plain version; no
+    library call computes the keyed function.  Bound: the bytes the
+    function moves (``rows``, ``mask`` read, ``keep`` written) against the
+    integer operations of one Philox block per four rows at the f32 rate;
+    its device time inside a solve graph's replay comes from the profile
+    phase (``p2plane_step``)."""
+    from norlab_icp_mapper_tpu_torch.ops.philox import (philox_keep,
+                                                        philox_keep_plain)
+    dev = torch.device("cuda")
+    before = philox_keep.launches
+    solve = torch.tensor(17, dtype=torch.int64, device=dev)
+    it = torch.tensor(9, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(12)
+    cases = []
+    for n in KEEP_LENGTHS:
+        mask = torch.rand(n, generator=gen) > 0.15
+        perm = torch.randperm(n, generator=gen)
+        for rows in (perm, None):
+            for prob in KEEP_PROBS:
+                kd = philox_keep(1234, solve, it, 1, prob, mask.to(dev),
+                                 None if rows is None else rows.to(dev))
+                pd = philox_keep_plain(1234, solve, it, 1, prob,
+                                       mask.to(dev),
+                                       None if rows is None else rows.to(dev))
+                pc = philox_keep_plain(1234, solve.cpu(), it.cpu(), 1, prob,
+                                       mask, rows)
+                cases.append({"n": n, "rows": "none" if rows is None
+                              else "permutation", "prob": prob,
+                              "kept": int(kd.sum()), "valid": int(mask.sum()),
+                              "plain": bool(torch.equal(kd, pd)),
+                              "cpu": bool(torch.equal(kd.cpu(), pc)),
+                              "err": int((kd != pd).any())})
+    bad = [c for c in cases if not (c["plain"] and c["cpu"])]
+    emit({"phase": "kernel_case", "case": "philox_keep", "kernel":
+          "philox_keep", "cases": len(cases), "differing": bad,
+          "kept_share_n49152": [c["kept"] / max(c["valid"], 1)
+                                for c in cases if c["n"] == SCAN_CAPACITY]})
+    check(not bad, f"philox_keep: kernel differs from its plain version: "
+                   f"{bad}")
+    check(all(c["kept"] == 0 for c in cases if c["prob"] == 0.0)
+          and all(c["kept"] == c["valid"] for c in cases
+                  if c["prob"] == 1.0),
+          "philox_keep: prob 0 kept a row or prob 1 dropped one")
+    n = SCAN_CAPACITY
+    mask = (torch.rand(n, generator=gen) > 0.15).to(dev)
+    rows = torch.randperm(n, generator=gen).to(dev)
+
+    def kernel():
+        return philox_keep(1234, solve, it, 1, 0.9, mask, rows)
+    ms = time_cuda(kernel)
+    plain_ms = time_cuda(lambda: philox_keep_plain(1234, solve, it, 1, 0.9,
+                                                   mask, rows))
+    PROFILE_JOBS.append(("device_ms", "philox_keep", kernel,
+                         "philox_keep_kernel"))
+    philox_keep.launches = before
+    bytes_moved = n * (8 + 1 + 1) + 8 + 4
+    ops_ms = (n + 3) // 4 * PHILOX_INT_OPS_PER_BLOCK / PEAK_F32_FLOPS * 1e3
+    bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+    emit({"phase": "kernel_case", "case": "philox_keep_timed",
+          "kernel": "philox_keep", "n": n, "kernel_ms": ms,
+          "plain_ms": plain_ms, "bytes": bytes_moved,
+          "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms})
+    return {"name": "philox_keep", "route": "cuda",
+            "source": "norlab_icp_mapper_tpu_torch/csrc/philox.cu",
+            "replaces": "icp/engine.py:585, filters/core.py:204",
+            "launches": 0,
+            "max_abs_err": float(max(c["err"] for c in cases)),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
 
 
 COMMIT_MAX_ITER = 40
@@ -2017,7 +2116,8 @@ def reset_counts():
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
     from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch, p2p_step
-    from norlab_icp_mapper_tpu_torch.ops.philox import philox_uniform
+    from norlab_icp_mapper_tpu_torch.ops.philox import (philox_keep,
+                                                        philox_uniform)
     sweep_knn.launches = 0
     sweep_knn.launches_by_shape = {}
     radius_pca.launches = 0
@@ -2025,7 +2125,8 @@ def reset_counts():
     knn.launches = 0
     knn.launches_by_shape = {}
     graph_loop.replay.launches = 0
-    for f in (kabsch, p2p_step, philox_uniform, graph_loop.loop_commit):
+    for f in (kabsch, p2p_step, philox_uniform, philox_keep,
+              graph_loop.loop_commit):
         f.launches = 0
         f.launches_by_shape = {}
 
@@ -2037,7 +2138,8 @@ def read_counts():
     from norlab_icp_mapper_tpu_torch.ops.pca import radius_pca
     from norlab_icp_mapper_tpu_torch.ops.eigen import sym_eig3_smallest
     from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch, p2p_step
-    from norlab_icp_mapper_tpu_torch.ops.philox import philox_uniform
+    from norlab_icp_mapper_tpu_torch.ops.philox import (philox_keep,
+                                                        philox_uniform)
     out = {f"sweep_knn[D={d},k={k}]": v
            for (d, k), v in sweep_knn.launches_by_shape.items()}
     out.update({f"knn_brute[D={d},k={k}]": v
@@ -2050,6 +2152,7 @@ def read_counts():
     out["kabsch"] = kabsch.launches
     out["p2p_step"] = p2p_step.launches
     out["philox"] = philox_uniform.launches
+    out["philox_keep"] = philox_keep.launches
     out["loop_commit"] = graph_loop.loop_commit.launches
     return out
 
@@ -2229,6 +2332,54 @@ def hold_graph_solve(mapper, phase):
     PROFILE_JOBS.append(("solve", phase, (
         lambda: icp.solve(*args, draws=mapper.draws), body.body,
         body.body_len, None, recapture), None))
+    return body
+
+
+def hold_step_paths(phase, loop):
+    """The step chain of the first matcher pass of a solve (``loop``
+    started: T = I, ``it`` = 0) both ways on the card: the path the solve
+    takes (a row-local chain in the solve's row order, handed the sort as
+    ``rows``) against the permute path (the reading permuted back to its
+    original order, mask and positions forward): bit for bit.  Their
+    device launches are counted in the profile phase."""
+    from norlab_icp_mapper_tpu_torch import se3
+    p = se3.apply_points(loop.T, loop.read)
+    pos_s, mask_s = loop._stepped(p, loop.mask)
+    pos_p, mask_p = loop._stepped_permuted(p, loop.mask)
+    rec = {"phase": f"{phase}_step_paths",
+           "row_local": loop.step_filters.row_local,
+           "sorted": loop.order is not None,
+           "mask_bit_identical": bool(torch.equal(mask_s, mask_p)),
+           "positions_bit_identical": bool(torch.equal(pos_s, pos_p)),
+           "kept": int(mask_s.sum()), "valid": int(loop.mask.sum())}
+    emit(rec)
+    check(rec["mask_bit_identical"] and rec["positions_bit_identical"],
+          f"{phase}: the solve's step chain differs from the permute path: "
+          f"{rec}")
+    check(0 < rec["kept"] < rec["valid"],
+          f"{phase}: the step chain kept {rec['kept']} of {rec['valid']}")
+    for path, fn in (("solve", loop._stepped),
+                     ("permuted", loop._stepped_permuted)):
+        PROFILE_JOBS.append(("launches", f"step_pass/{phase}/{path}",
+                             lambda fn=fn: fn(p, loop.mask), None))
+
+
+def queue_scan_launches(phase, config, scans, priors):
+    """A fresh Mapper on ``config`` fed three scans now; the profile phase
+    counts the device launches of its fifth (one steady scan, drained)."""
+    import norlab_icp_mapper_tpu_torch as nt
+    mm = nt.Mapper(config, is_3d=True, device="cuda", seed=0)
+    it = iter(range(len(scans)))
+
+    def feed():
+        i = next(it)
+        b = nt.PointBatch.from_numpy(scans[i], capacity=SCAN_CAPACITY,
+                                     device="cuda")
+        mm.process_input(mm.apply_input_filters(b), priors[i], int(i * 1e8))
+        mm.drain()
+    for _ in range(3):
+        feed()
+    PROFILE_JOBS.append(("launches", f"steady_scan/{phase}", feed, None))
 
 
 def free_running(config, scans, priors, online=False):
@@ -2647,16 +2798,35 @@ def hold_card_vs_cpu(mapper, phase):
                         f"by {diff} (> 1e-4)")
 
 
+STEP_OCTREE = {"OctreeGridDataPointsFilter": {"maxSizeByNode": 0.2,
+                                               "samplingMethod": 1}}
+
+
+def step_config(octree=False):
+    """``examples/config_p2plane.yaml`` with a random step filter (prob
+    0.9), in memory; ``octree`` puts a random octree decimation (0.2 m) in
+    front of it: a chain that is not row-local."""
+    cfg = config_dict("config_p2plane.yaml")
+    cfg["icp"]["readingStepDataPointsFilters"] = (
+        [STEP_OCTREE] if octree else []) + [
+        {"RandomSamplingDataPointsFilter": {"prob": STEP_PROB}}]
+    return cfg
+
+
 def phase_step_filters(scans, priors, poses):
     """``examples/config_p2plane.yaml`` with a random step filter
     (``RandomSamplingDataPointsFilter``, prob 0.9) in memory, over the 18
     scans step-locked, steady scans under ``"error"``: every solve one
-    graph replay whose step draws are keyed on the card; the last solve
-    against its Python loop (bit for bit) and against the CPU's (1e-4);
-    ATE below a third of the prior's."""
-    cfg = config_dict("config_p2plane.yaml")
-    cfg["icp"]["readingStepDataPointsFilters"] = [
-        {"RandomSamplingDataPointsFilter": {"prob": STEP_PROB}}]
+    graph replay whose step keep mask is one ``philox_keep`` launch per
+    matcher pass, on the sorted reading with the sort as its rows; the last
+    solve against its Python loop (bit for bit) and against the CPU's
+    (1e-4), its first pass against the permute path (bit for bit); ATE
+    below a third of the prior's.  Then ``p2plane_step_octree``: the same
+    with a random octree decimation in front (not row-local: the permute
+    path, ``philox`` drawing its priorities), graph against loop bit for
+    bit, ATE below a third of the prior's.  Returns both drives'
+    launches."""
+    cfg = step_config()
     mapper, rec = drive("config_p2plane.yaml", scans, priors,
                         "p2plane_step", strict=True, config=cfg)
     est = mapper.get_trajectory().poses
@@ -2676,12 +2846,35 @@ def phase_step_filters(scans, priors, poses):
     check(rec["recovered_ate_m"] < prior_ate / 3.0,
           f"p2plane_step: recovered ATE {rec['recovered_ate_m']} not below "
           f"a third of the prior's {prior_ate}")
-    check(launch["philox"] > 0 and launch.get("sweep_knn[D=3,k=3]", 0) > 0,
+    check(launch["philox_keep"] > 0
+          and launch.get("sweep_knn[D=3,k=3]", 0) > 0,
           f"p2plane_step: the step draws or the matcher not on the card: "
           f"{launch}")
-    hold_graph_solve(mapper, "p2plane_step")
+    loop = hold_graph_solve(mapper, "p2plane_step")
+    hold_step_paths("p2plane_step", loop)
     hold_card_vs_cpu(mapper, "p2plane_step")
-    return launch
+    queue_scan_launches("p2plane_step", cfg, scans, priors)
+
+    ocfg = step_config(octree=True)
+    omapper, orec = drive("config_p2plane.yaml", scans, priors,
+                          "p2plane_step_octree", strict=True, config=ocfg)
+    orec.update({"step_filters": ocfg["icp"]["readingStepDataPointsFilters"],
+                 "prior_ate_m": prior_ate,
+                 "recovered_ate_m": ate(omapper.get_trajectory().poses[1:],
+                                        poses[1:])})
+    emit(orec)
+    olaunch = orec["launches"]
+    check_small_map(omapper, orec, len(scans))
+    check_sync(orec)
+    check_graph_launches("p2plane_step_octree", olaunch, len(scans))
+    check(orec["recovered_ate_m"] < prior_ate / 3.0,
+          f"p2plane_step_octree: recovered ATE {orec['recovered_ate_m']} "
+          f"not below a third of the prior's {prior_ate}")
+    check(olaunch["philox"] > 0 and olaunch["philox_keep"] > 0,
+          f"p2plane_step_octree: the step draws not on the card: {olaunch}")
+    oloop = hold_graph_solve(omapper, "p2plane_step_octree")
+    hold_step_paths("p2plane_step_octree", oloop)
+    return launch, olaunch
 
 
 # ---------------------------------------------------------------------------
@@ -3902,8 +4095,60 @@ def hold_sharded_graph(mapper, scan, prior):
     return lambda: step.icp_solve(*args, draws=sh.draws)
 
 
+def hold_sharded_step_paths(mapper, scan, prior):
+    """The sharded solve's step mask at the first matcher pass of one
+    scan's solve (``_ShardedLoop`` started, the reading sorted by the
+    sweep) both ways on the card: the solve's path (a row-local chain,
+    ``rows=order``) against the permute path (through the inverse of the
+    sort), bit for bit.  Returns one call of each, for their launches, and
+    one replay of the scan's solve graph."""
+    import norlab_icp_mapper_tpu_torch as nt
+    from norlab_icp_mapper_tpu_torch import se3
+    from norlab_icp_mapper_tpu_torch.draws import upload
+    from norlab_icp_mapper_tpu_torch.icp.engine import _invert
+    from norlab_icp_mapper_tpu_torch.parallel.sharded_map import _ShardedLoop
+    sh = mapper._sharded
+    step = sh.step
+    b = nt.PointBatch.from_numpy(scan, capacity=SCAN_CAPACITY, device="cuda")
+    scan_m = se3.apply(upload(prior, sh.device),
+                       mapper.apply_input_filters(b))
+    read_mask = mapper.icp.reading_filters.apply(scan_m, mapper.draws).mask
+    st = sh.state
+    loop = _ShardedLoop(step, scan_m.positions, read_mask, st["pos"],
+                        st["nrm"], st["msk"], draws=sh.draws,
+                        solve_index=torch.full((), sh.draws.solves,
+                                               dtype=torch.int64,
+                                               device="cuda"))
+    loop.start()
+    p = se3.apply_points(loop.T, loop.read)
+    inv = _invert(loop.order)
+
+    def solve_path():
+        return step._step_mask(p, loop.mask, loop._draws(), loop.order,
+                               loop.inv_order)
+
+    def permuted():
+        return step._step_mask_permuted(p, loop.mask, loop._draws(),
+                                        loop.order, inv)
+    got, want = solve_path(), permuted()
+    rec = {"phase": "sharded_step_paths", "sorted": loop.order is not None,
+           "inverse_built": loop.inv_order is not None,
+           "mask_bit_identical": bool(torch.equal(got, want)),
+           "kept": int(got.sum()), "valid": int(loop.mask.sum())}
+    emit(rec)
+    check(rec["mask_bit_identical"] and rec["sorted"]
+          and not rec["inverse_built"],
+          f"sharded: the solve's step mask differs from the permute path: "
+          f"{rec}")
+    check(0 < rec["kept"] < rec["valid"],
+          f"sharded: the step mask kept {rec['kept']} of {rec['valid']}")
+    args = (scan_m.positions, read_mask, st["pos"], st["nrm"], st["msk"])
+    return solve_path, permuted, lambda: step.icp_solve(*args,
+                                                        draws=sh.draws)
+
+
 def sharded_config(name="config_p2plane.yaml", point_distance=False,
-                   unbounded=False, static=False, p2point=False):
+                   unbounded=False, static=False, p2point=False, step=False):
     """A bundled config as a dict; ``point_distance`` puts a
     PointDistanceMapperModule (0.15 m) first in the module list,
     ``unbounded`` drops the matcher's maxDist (the brute-force 1-NN),
@@ -3912,7 +4157,8 @@ def sharded_config(name="config_p2plane.yaml", point_distance=False,
     on which point represents a voxel (that follows the layout: the random
     draws are the rank's, the first point is the block's first slot);
     ``p2point`` swaps in the point-to-point solve of the CPU tests (1-NN
-    within 1 m, trimmed 0.9, 15 iterations)."""
+    within 1 m, trimmed 0.9, 15 iterations); ``step`` adds a random step
+    filter (prob 0.9)."""
     import yaml
     with open(os.path.join(HERE, "examples", name)) as fh:
         cfg = yaml.safe_load(fh)
@@ -3929,6 +4175,9 @@ def sharded_config(name="config_p2plane.yaml", point_distance=False,
             "errorMinimizer": "PointToPointErrorMinimizer",
             "transformationCheckers": [{"CounterTransformationChecker": {
                 "maxIterationCount": 15}}]})
+    if step:
+        cfg["icp"]["readingStepDataPointsFilters"] = [
+            {"RandomSamplingDataPointsFilter": {"prob": STEP_PROB}}]
     if static:
         cfg["mapper"]["mapperModule"] = [
             m for m in cfg["mapper"]["mapperModule"]
@@ -4385,6 +4634,25 @@ def phase_sharded(scans, poses, priors, p2_rec):
               and prec["launches"]["p2p_step"] >= n_p - 1,
               f"sharded p2point: the moments or the solve not on the card: "
               f"{prec['launches']}")
+        # the same with a random step filter: its keep mask one
+        # philox_keep launch per matcher pass on the sorted reading
+        smapper, _, srec = sharded_drive(
+            mesh, sharded_config(p2point=True, step=True), scans[:n_p],
+            priors[:n_p], strict=True)
+        srec.update({"phase": "sharded", "drive": "p2point_step",
+                     "prior_ate_m": ate(priors[1:n_p], poses[1:n_p]),
+                     "recovered_ate_m": ate(
+                         smapper.get_trajectory().poses[1:], poses[1:n_p])})
+        emit(srec)
+        check(not srec["reads_in_steady_process_input"],
+              f"sharded p2point_step: a steady scan made a counted read: "
+              f"{srec['reads_in_steady_process_input']}")
+        check(srec["launches"]["philox_keep"] >= n_p - 1
+              and srec["launches"]["p2p_step"] >= n_p - 1,
+              f"sharded p2point_step: the step mask or the solve not on the "
+              f"card: {srec['launches']}")
+        *step_paths, step_replay = hold_sharded_step_paths(
+            smapper, scans[n_p - 1], priors[n_p - 1])
         # the unbounded matcher: knn_brute on the block
         umapper, _, urec = sharded_drive(
             mesh, sharded_config(unbounded=True), scans[:4], priors[:4],
@@ -4446,10 +4714,14 @@ def phase_sharded(scans, poses, priors, p2_rec):
             e["name"]: urec["launches"].get("knn_brute[D=3,k=1]", 0),
             # the eigensolve of the halo covariances
             "sym_eig[D=3]": main_launch["sym_eig[D=3]"],
-            "kabsch": prec["launches"]["kabsch"],
-            "p2p_step": prec["launches"]["p2p_step"],
+            "kabsch": (prec["launches"]["kabsch"]
+                       + srec["launches"]["kabsch"]),
+            "p2p_step": (prec["launches"]["p2p_step"]
+                         + srec["launches"]["p2p_step"]),
             "loop_commit": (main_launch["loop_commit"]
-                            + prec["launches"]["loop_commit"]),
+                            + prec["launches"]["loop_commit"]
+                            + srec["launches"]["loop_commit"]),
+            "philox_keep": srec["launches"]["philox_keep"],
         }
 
         # ---- two gloo ranks on the one card
@@ -4509,6 +4781,9 @@ def phase_sharded(scans, poses, priors, p2_rec):
                 ("single_device", sharded_config(), {}),
                 ("p2point", {"icp": p2point_icp(False)}, {}),
                 ("sharded", sharded_config(),
+                 {"mesh": mesh, "sharded_options": SHARDED_OPTIONS}),
+                ("sharded_p2point_step",
+                 sharded_config(p2point=True, step=True),
                  {"mesh": mesh, "sharded_options": SHARDED_OPTIONS})):
             mm = nt.Mapper(cfg_, is_3d=True, device="cuda", seed=0, **kw)
             it = iter(range(len(scans)))
@@ -4523,6 +4798,11 @@ def phase_sharded(scans, poses, priors, p2_rec):
             for _ in range(3):
                 feed()
             feeds[label] = count_device_launches(feed)
+            if label != "sharded_p2point_step":
+                mm.shutdown()
+        SHARDED_STEP_PASS.update({
+            path: count_device_launches(fn)
+            for path, fn in zip(("solve", "permuted"), step_paths)})
         emit({"phase": "sharded", "drive": "device_launches_per_scan",
               "counted_by": "torch.profiler device events, one steady scan "
                             "drained (the fourth and fifth scans)",
@@ -4540,9 +4820,21 @@ def phase_sharded(scans, poses, priors, p2_rec):
         check(prof is not None and "loop_commit" in prof["kernels"],
               f"sharded: no commit kernel in the solve graph's replay: "
               f"{prof}")
+        # the point-to-point step drive's last solve graph: the increment
+        # from the reduced moments and the step mask inside the replay
+        sprof = solve_device_profile(
+            step_replay, iterations=smapper._sharded.cfg.max_iter)
+        emit({"phase": "sharded", "drive": "p2point_step_solve_graph_device",
+              "counted_by": "as solve_graph_device", **(sprof or {})})
+        SHARDED_STEP_SOLVE.update(sprof or {})
+        check(sprof is not None and "kabsch" in sprof["kernels"]
+              and "philox_keep" in sprof["kernels"],
+              f"sharded p2point_step: the increment or the step mask not in "
+              f"the solve graph's replay: {sprof}")
         # NCCL destroys no communicator while a graph that captured its
         # collectives lives: every sharded mapper frees its solve graphs
-        for m_ in (mapper, gmapper, pmapper, umapper, imapper, mm):
+        for m_ in (mapper, gmapper, pmapper, umapper, imapper, smapper,
+                   mm):
             m_.shutdown()
         dist.destroy_process_group()
     finally:
@@ -4554,6 +4846,38 @@ def phase_sharded(scans, poses, priors, p2_rec):
             else:
                 os.environ[key] = v
     return runs, entries
+
+
+def step_chain_launches(device_launches, feeds):
+    """The step chain's device launches per matcher pass (the solve's path
+    and the permute path, on the first pass of each held phase's last
+    solve) and the device launches per steady scan of the drives with step
+    filters, counted by ``torch.profiler``; the solve's path of a
+    RandomSampling chain is one ``philox_keep`` launch."""
+    per_pass = {"sharded_p2point_step": dict(SHARDED_STEP_PASS)}
+    per_scan = {"p2point": feeds.get("p2point"),
+                "sharded_p2point_step": feeds.get("sharded_p2point_step")}
+    for key in list(device_launches):
+        kind, _, rest = key.partition("/")
+        if kind == "step_pass":
+            phase, _, path = rest.partition("/")
+            per_pass.setdefault(phase, {})[path] = device_launches.pop(key)
+        elif kind == "steady_scan":
+            per_scan[rest] = device_launches.pop(key)
+    emit({"phase": "step_chain_launches",
+          "counted_by": "torch.profiler device events: one call of each "
+                        "path on the first matcher pass of the phase's "
+                        "last solve; one steady scan, drained",
+          "per_matcher_pass": per_pass, "per_steady_scan": per_scan})
+    for phase in ("p2plane_step", "p2point", "sharded_p2point_step"):
+        check(per_pass.get(phase, {}).get("solve") == 1,
+              f"{phase}: the step chain took {per_pass.get(phase)} device "
+              f"launches per pass, not one philox_keep")
+    for phase in ("p2plane_step", "sharded_p2point_step"):
+        r = per_pass[phase]
+        check(r.get("permuted") is not None and r["permuted"] > r["solve"],
+              f"{phase}: the permute path took no more launches than the "
+              f"solve's: {r}")
 
 
 def main() -> int:
@@ -4711,10 +5035,10 @@ def main() -> int:
     check_graph_launches("p2point", pp_launch, n_pp)
     check(pp_launch["p2p_step"] >= sum(rec["icp_iterations"][1:])
           and pp_launch["loop_commit"] >= sum(rec["icp_iterations"][1:])
-          and pp_launch["philox"] > 0,
+          and pp_launch["philox_keep"] > 0,
           f"p2point: the minimizer, the commit or the step draws not on "
           f"the card: {pp_launch}")
-    hold_graph_solve(mapper, "p2point")
+    hold_step_paths("p2point", hold_graph_solve(mapper, "p2point"))
     mapper, rec, _ = drive_default(scans[:4], priors[:4],
                                    {"icp": p2point_icp(True)},
                                    "p2point_bound", strict_solve=True)
@@ -4725,7 +5049,7 @@ def main() -> int:
 
     # ---- step filters with maxDist: the p2plane config with a random step
     # filter, its draws keyed on the card inside the solve graph
-    st_launch = phase_step_filters(scans, priors, poses)
+    st_launch, so_launch = phase_step_filters(scans, priors, poses)
 
     # ---- octree leaves with maxPointByNode > 1, the filter zoo, keyframes
     # and the pose graph
@@ -4747,6 +5071,7 @@ def main() -> int:
     prof = phase_profile()
     solve_dev = prof["solve_device"]
     feeds = SHARDED_SOLVE.get("steady_scan_device_launches", {})
+    step_chain_launches(prof["device_launches"], feeds)
     rows = {}
     for ph, phase_rec, feed in (("p2plane", p2_rec, "single_device"),
                                 ("p2point", pp_rec, "p2point")):
@@ -4775,14 +5100,17 @@ def main() -> int:
           "rows": rows, "before_one_commit_kernel": EAGER_COMMIT_SOLVE})
     for ph, kernel in (("p2plane", "loop_commit"), ("p2point", "p2p_step"),
                        ("p2point", "loop_commit"),
-                       ("p2plane_step", "philox")):
+                       ("p2plane_step", "philox_keep"),
+                       ("p2plane_step_octree", "philox"),
+                       ("p2plane_step_octree", "philox_keep")):
         r = solve_dev.get(ph)
         check(r is not None and kernel in r["kernels"],
               f"{ph}: {kernel} not in the solve graph's replay: {r}")
     for e in entries:
         in_replay = {ph: r["kernels"][e["name"]]["mean_device_ms"]
                      for ph, r in list(solve_dev.items())
-                     + [("sharded", SHARDED_SOLVE)]
+                     + [("sharded", SHARDED_SOLVE),
+                        ("sharded_p2point_step", SHARDED_STEP_SOLVE)]
                      if r and e["name"] in r.get("kernels", {})}
         if in_replay:
             e["device_ms_in_replay"] = in_replay
@@ -4794,6 +5122,7 @@ def main() -> int:
         runs = {"identity": id_launch, "p2plane": p2_launch,
                 "default": df_launch, "p2point": pp_launch,
                 "p2plane_step": st_launch,
+                "p2plane_step_octree": so_launch,
                 "tracing": tr_launch, "octree_k": ok_launch,
                 "filters": fl_launch, "posegraph": pg_launch,
                 "cli": cli_launch, "distributed": ds_launch,

@@ -7,9 +7,10 @@ Drives the port's ``Mapper`` through the synthetic sequence of
 ``chip_smoke.py`` (18 scans of 49,152 rays, seed ``--seed``) in four
 configs -- ``identity`` (examples/config.yaml), ``p2plane``
 (examples/config_p2plane.yaml, perturbed priors), ``default``
-(``Mapper(None)``, the same priors) and ``p2point`` (the default with
-``chip_smoke.py``'s point-to-point ``icp:`` section, the same priors) --
-and prints one JSON line per config:
+(``Mapper(None)``, the same priors), ``p2point`` (the default with
+``chip_smoke.py``'s point-to-point ``icp:`` section, the same priors) and
+``p2plane_step`` (the p2plane config with ``chip_smoke.py``'s random step
+filter, prob 0.9, the same priors) -- and prints one JSON line per config:
 
   step_locked_ms_per_scan  host clock around apply_input_filters +
                            process_input + drain(), steady scans (2-17)
@@ -22,7 +23,14 @@ and prints one JSON line per config:
   profile                  ``torch.profiler`` over scans 3-5, each solve
                            between two synchronisations: device busy ms,
                            device launches and device idle share inside the
-                           solves, per ICP iteration
+                           solves, per ICP iteration; device launches per
+                           scan (all of the scans' device events)
+  step_chain               (configs with step filters) device launches of
+                           the step chain of one matcher pass, the first
+                           of the sixth scan's solve (``_Loop._stepped``),
+                           and of the sharded solve's ``_step_mask`` with
+                           the same chain on the same reading sorted by the
+                           sweep (``ShardedMapperStep`` without a group)
   graph_captures, mapper_waits
                            what the package counts, where it counts it
 
@@ -353,6 +361,7 @@ def profile(nt, cfg, scans, priors, cap, out_dir, name):
     path = os.path.join(out_dir, f"trace_{name}.json")
     prof.export_chrome_trace(path)
     w = solve_windows(path)
+    launches_per_scan = device_events(path) / 3
     keep = [not c for c in captured]
     w = [x for x, k in zip(w, keep) if k]
     iters = sum(n for n, k in zip(its, keep) if k)
@@ -364,7 +373,77 @@ def profile(nt, cfg, scans, priors, cap, out_dir, name):
             "device_launches_per_iteration":
                 sum(x["launches"] for x in w) / max(iters, 1),
             "solve_window_ms_per_iteration": win / 1e3 / max(iters, 1),
-            "device_idle_share_in_solve": 1.0 - busy / win if win else None}
+            "device_idle_share_in_solve": 1.0 - busy / win if win else None,
+            "device_launches_per_scan": launches_per_scan}
+
+
+def device_events(trace_path) -> int:
+    """Device activities (kernels, copies, fills) in a chrome trace."""
+    with open(trace_path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    return sum(1 for e in ev if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def launches_of(fn) -> int:
+    """Device activities that one call of ``fn`` starts (after one
+    untimed call), by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def step_chain(nt, cfg, scans, priors, cap):
+    """Device launches of one matcher pass's step chain: the first pass of
+    the sixth scan's solve (``_Loop`` started: T = I, ``it`` = 0), and the
+    sharded solve's ``_step_mask`` with the same chain on the same reading
+    sorted as its sweep sorts it (1-NN within 1 m, the reference as the
+    block).  The package's own pieces, so that a checkout before a change
+    and after it are measured alike."""
+    from norlab_icp_mapper_tpu_torch import se3
+    from norlab_icp_mapper_tpu_torch.icp import engine
+    from norlab_icp_mapper_tpu_torch.parallel import sharded_map as SM
+    m = make_mapper(nt, cfg)
+    m.timer.enabled = False
+    for i in range(5):
+        feed(nt, m, scans[i], priors[i], i, cap)
+        m.drain()
+    icp = m.icp
+    batch = nt.PointBatch.from_numpy(scans[5], capacity=cap, device="cuda")
+    reading = se3.apply(torch.as_tensor(priors[5], device="cuda"),
+                        m.apply_input_filters(batch))
+    if len(icp.reading_filters):
+        reading = icp.reading_filters._apply_impl(reading, m.draws)
+    ref = icp._ref
+    args = (reading.positions, reading.mask, ref.positions,
+            icp.check_reference(ref), ref.mask, icp._ref_pack)
+    chain = icp.reading_step_filters
+    solve = torch.zeros((), dtype=torch.int64, device="cuda")
+    loop = engine._Loop(*args, step_filters=chain, draws=m.draws,
+                        solve_index=solve, **icp.solve_config())
+    loop.start()
+    p = se3.apply_points(loop.T, loop.read)
+    out = {"sorted": loop.order is not None,
+           "launches_per_pass": launches_of(
+               lambda: loop._stepped(p, loop.mask))}
+    step = SM.ShardedMapperStep.__new__(SM.ShardedMapperStep)
+    step.cfg = SM.ShardedMapConfig(match_max_dist=1.0,
+                                   step_filter=chain._apply_impl)
+    # the matcher's reading, the order that sorted it (and, after the
+    # row-order change, the inverse it builds once per solve)
+    matched = step._matcher(args[0], args[1], ref.positions, ref.mask)
+    draws = m.draws.keyed(solve, loop.it)
+    out["sharded_launches_per_pass"] = launches_of(
+        lambda: step._step_mask(matched[1], matched[2], draws,
+                                *matched[3:]))
+    m.shutdown()
+    return out
 
 
 def main() -> int:
@@ -404,7 +483,8 @@ def main() -> int:
         print(smi, flush=True)
         return 0 if ok else 1
     recs = {}
-    configs = CONFIGS + (("p2point", {"icp": cs.p2point_icp(False)}),)
+    configs = CONFIGS + (("p2point", {"icp": cs.p2point_icp(False)}),
+                         ("p2plane_step", cs.step_config()))
     for name, cfg in configs:
         priors = poses if name == "identity" else perturbed
         rec = {"phase": name, "config": cfg}
@@ -415,6 +495,11 @@ def main() -> int:
         rec["blocking_reads_where"] = where
         recs[name] = rec
     # the profiler last: its hooks slow every later launch
+    for name, cfg in configs:
+        if isinstance(cfg, dict) and cfg["icp"].get(
+                "readingStepDataPointsFilters"):
+            recs[name]["step_chain"] = step_chain(
+                nt, cfg, scans, perturbed, cs.SCAN_CAPACITY)
     for name, cfg in configs:
         priors = poses if name == "identity" else perturbed
         recs[name]["profile"] = profile(nt, cfg, scans, priors,

@@ -29,6 +29,13 @@ the counterpart of the JAX package's ``fold_in(key, it)``.  They need no
 host, so a CUDA graph of the solve draws anew at every pass, and the card
 and the CPU draw the same numbers.  A caller-supplied ``source`` is asked
 once per matcher pass instead, under the CPU's Python loop only.
+
+A RandomSampling filter asks for its keep mask, not for the uniforms
+(:meth:`DrawSource.keep`, :meth:`KeyedDraws.keep`): ``mask & (u < prob)``,
+where row ``j`` takes the draw of original row ``rows[j]``.  The solve runs
+its step chain on the reading in its own (sorted) row order and passes the
+sort as ``rows``, so every draw lands on the point it lands on unsorted;
+keyed, that is one ``philox_keep`` launch per pass.
 """
 from __future__ import annotations
 
@@ -104,6 +111,18 @@ class DrawSource:
         return upload(torch.rand(n, generator=self.generator,
                                  dtype=torch.float32), self.device)
 
+    def keep(self, site: str, prob: float, mask: torch.Tensor,
+             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask & (u[rows] < prob)`` on the device of ``mask``: ``u`` one
+        uniform per row of ``mask`` (:meth:`uniform`), ``rows`` the original
+        row of each row (None: the rows as they are), ``prob`` compared in
+        float32."""
+        u = self.uniform(site, mask.shape[0]).to(mask.device)
+        if rows is not None:
+            u = u[rows]
+        return mask & (u < torch.full((), prob, dtype=torch.float32,
+                                      device=mask.device))
+
     def prio15(self, site: str, n: int) -> torch.Tensor:
         """``n`` int64 priorities in ``[0, 2**15)`` on the source's device."""
         if self.source is not None:
@@ -138,9 +157,10 @@ class DrawSource:
 class KeyedDraws:
     """One matcher pass's draws inside a solve: a function of the seed, the
     solve index and ``it`` (read on their device, never on the host), the
-    row, and the draw's place among the pass's draws.  ``uniform`` and
-    ``prio15`` (``(word >> 17)`` of the same Philox words: ``floor(u *
-    2**15)``) cover the step chain's drawing filters."""
+    row, and the draw's place among the pass's draws.  ``uniform``, ``keep``
+    (the same words, compared in ``philox_keep``) and ``prio15`` (``(word >>
+    17)`` of the same Philox words: ``floor(u * 2**15)``) cover the step
+    chain's drawing filters."""
 
     source = None
 
@@ -154,6 +174,14 @@ class KeyedDraws:
         u = philox_uniform(self.seed, self.solve, self.it, self.calls, n)
         self.calls += 1
         return u
+
+    def keep(self, site: str, prob: float, mask: torch.Tensor,
+             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        from .ops.philox import philox_keep
+        k = philox_keep(self.seed, self.solve, self.it, self.calls, prob,
+                        mask, rows)
+        self.calls += 1
+        return k
 
     def prio15(self, site: str, n: int) -> torch.Tensor:
         return (self.uniform(site, n) * float(1 << 15)).to(torch.int64)

@@ -11,6 +11,14 @@ the centroid samplings, positions); shapes never change.  ``draws`` is a
 :class:`~norlab_icp_mapper_tpu_torch.draws.DrawSource`; only filters that
 draw random numbers use it.
 
+A filter is ``ROW_LOCAL`` where a row's output bit depends only on that row
+and its own draw and it moves no point (BoundingBox, DistanceLimit, MaxDist,
+MinDist, RemoveNaN, Identity, RandomSampling).  A chain of such filters can
+run on a reading in another row order than its draws' --
+``_apply_impl(batch, draws, rows)``, ``rows[j]`` the original row of row
+``j`` -- which is how the ICP solve runs its step chain on the sorted
+reading without permuting it back.
+
 Constants reach the card as fills or pinned non-blocking copies
 (``draws.upload``), never as pageable copies: a chain of these filters makes
 no blocking host read.
@@ -35,6 +43,10 @@ filter_registry = Registry("DataPointsFilter")
 
 
 class DataPointsFilter(ParametrizedPlugin):
+    # a row's bit depends on that row and its own draw alone, and no point
+    # moves: the filter accepts `rows` (see FilterChain._apply_impl)
+    ROW_LOCAL = False
+
     def apply(self, batch: PointBatch,
               draws: Optional[DrawSource] = None) -> PointBatch:
         raise NotImplementedError
@@ -62,11 +74,27 @@ class FilterChain:
             return batch
         return self._apply_impl(batch, draws)
 
+    @property
+    def row_local(self) -> bool:
+        """Every filter of the chain is ``ROW_LOCAL``."""
+        return all(f.ROW_LOCAL for f in self.filters)
+
     def _apply_impl(self, batch: PointBatch,
-                    draws: Optional[DrawSource] = None) -> PointBatch:
+                    draws: Optional[DrawSource] = None,
+                    rows: Optional[torch.Tensor] = None) -> PointBatch:
+        """The chain on ``batch``; with ``rows`` (int64, row ``j`` of the
+        batch is original row ``rows[j]``) every draw lands on its original
+        row.  Only a row-local chain takes ``rows``."""
         # a drawing filter asks `draws` for exactly one draw per call
         for f in self.filters:
-            batch = f.apply(batch, draws)
+            if rows is None:
+                batch = f.apply(batch, draws)
+            elif f.ROW_LOCAL:
+                batch = f.apply(batch, draws, rows)
+            else:
+                raise ValueError(
+                    f"{f.NAME} is not row-local: it runs only on the "
+                    "reading in its original row order (rows=None)")
         return batch
 
     def __len__(self):
@@ -89,7 +117,9 @@ class BoundingBoxFilter(DataPointsFilter):
                               float, 0, 1),
     }
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         p = self.params
         pos = batch.positions
         lo = upload([p["xMin"], p["yMin"], p["zMin"]][: batch.dim],
@@ -117,7 +147,9 @@ class DistanceLimitFilter(DataPointsFilter):
                               1.0, float, 0, 1),
     }
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         p = self.params
         dim = int(p["dim"])
         dist = float(p["dist"])
@@ -198,8 +230,9 @@ class RandomSamplingFilter(DataPointsFilter):
     (lpm ``RandomSamplingDataPointsFilter``).
 
     Draws one uniform per slot from ``draws`` (site
-    ``SITE_RANDOM_SAMPLING``); without a ``draws`` argument it seeds a
-    generator of its own from ``seed``."""
+    ``SITE_RANDOM_SAMPLING``, through ``draws.keep``; with ``rows`` slot
+    ``j`` takes the draw of original slot ``rows[j]``); without a ``draws``
+    argument it seeds a generator of its own from ``seed``."""
 
     NAME = "RandomSamplingDataPointsFilter"
     PARAMS = {
@@ -210,14 +243,14 @@ class RandomSamplingFilter(DataPointsFilter):
                       float, 0),
     }
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         if draws is None:
             draws = DrawSource(int(self.params["seed"]), batch.device)
-        u = draws.uniform(SITE_RANDOM_SAMPLING, batch.capacity)
-        u = u.to(batch.device)
-        prob = torch.full((), self.params["prob"], dtype=torch.float32,
-                          device=batch.device)
-        return batch.with_mask(u < prob)
+        # the keep mask holds batch.mask already: no `&` after it
+        return batch.replace(mask=draws.keep(
+            SITE_RANDOM_SAMPLING, self.params["prob"], batch.mask, rows))
 
 
 @filter_registry.register
@@ -439,7 +472,9 @@ class MaxDistFilter(DataPointsFilter):
         "maxDist": Param("distance threshold (m)", 1.0),
     }
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         val = _axis_value(batch, int(self.params["dim"]))
         return batch.with_mask(val < float(np.float32(self.params["maxDist"])))
 
@@ -454,7 +489,9 @@ class MinDistFilter(DataPointsFilter):
         "minDist": Param("distance threshold (m)", 1.0),
     }
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         val = _axis_value(batch, int(self.params["dim"]))
         return batch.with_mask(val > float(np.float32(self.params["minDist"])))
 
@@ -508,7 +545,9 @@ class IdentityFilter(DataPointsFilter):
     NAME = "IdentityDataPointsFilter"
     PARAMS = {}
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         return batch
 
 
@@ -520,6 +559,8 @@ class RemoveNaNFilter(DataPointsFilter):
     NAME = "RemoveNaNDataPointsFilter"
     PARAMS = {}
 
-    def apply(self, batch, draws=None):
+    ROW_LOCAL = True
+
+    def apply(self, batch, draws=None, rows=None):
         return batch.with_mask(torch.all(torch.isfinite(batch.positions),
                                          dim=1))

@@ -33,9 +33,15 @@ loop that reads ``done`` before each iteration.  Correspondences are
 re-searched every ``rematch_every`` iterations (default 3,
 ``NIM_TPU_REMATCH_EVERY``) and held in between.
 
-Step filters see the moved reading in its original row order (the sweep
-sorts it by x once per solve), so a draw lands on the same point with or
-without the sort, as in the JAX package's CPU solve.
+Step filters draw on the moved reading's original rows (the sweep sorts it
+by x once per solve), so a draw lands on the same point with or without the
+sort, as in the JAX package's CPU solve.  A row-local chain
+(``FilterChain.row_local``: box, distance and NaN gates, RandomSampling)
+runs on the reading in the solve's order and is handed the sort as
+``rows``: one ``philox_keep`` launch for a RandomSampling step filter, no
+gather.  Any other chain (voxel and octree decimations, MaxPointCount) sees
+the reading permuted back to its original order, and its mask and positions
+are permuted forward again.
 
 The returned "correction" has the same meaning as lpm's: ``corrected_pose =
 correction @ estimated_pose``.
@@ -59,7 +65,7 @@ import torch
 from .. import se3
 from ..draws import DrawSource
 from ..ops.kabsch import kabsch, p2p_step
-from ..ops.philox import philox_uniform
+from ..ops.philox import philox_keep, philox_uniform
 from ..points import PointBatch
 from ..filters.core import FilterChain
 from ..ops import graph_loop
@@ -566,7 +572,7 @@ class _Loop:
         order near-sorted (window spans are re-measured from the moved
         coordinates every pass), and every consumer -- overlap, trimmed
         sort, normal equations -- is permutation invariant.  The step
-        filters are the exception: they see the original order."""
+        filters are the exception: they draw on the original rows."""
         f32, dev = torch.float32, self.dev
         pos, mask = self.read_pos, self.read_mask
         self.n_valid = torch.clamp(mask.to(f32).sum(), min=1.0)
@@ -575,7 +581,9 @@ class _Loop:
             order = torch.sort(q_x, stable=True).indices
             pos, mask = pos[order], mask[order]
             if self.step_filters is not None:
-                self.order, self.inv_order = order, _invert(order)
+                # a row-local chain needs no inverse (_stepped_in_rows)
+                self.order, self.inv_order = order, (
+                    None if self.step_filters.row_local else _invert(order))
         self.read, self.mask = pos, mask
         hdim = self.dim + 1
         smooth_len = self.diff_checker[2] if self.diff_checker else 1
@@ -647,16 +655,35 @@ class _Loop:
     # ------------------------------------------------------------- pieces
     def _stepped(self, p, cur_mask):
         """lpm readingStepDataPointsFilters: a fresh copy of the moved
-        reading filtered at every pass (mask-only effects here), in its
-        original row order, so that draw ``i`` lands on reading point
-        ``i`` whether or not the sweep sorted the reading."""
-        draws = (self.draws.keyed(self.solve_index, self.it) if self.keyed
-                 else self.draws)
+        reading filtered at every pass, draw ``i`` landing on reading
+        point ``i`` whether or not the sweep sorted the reading.  Returns
+        the stepped positions and mask in the solve's row order."""
+        if self.step_filters.row_local:
+            return self._stepped_in_rows(p, cur_mask)
+        return self._stepped_permuted(p, cur_mask)
+
+    def _step_draws(self):
+        return (self.draws.keyed(self.solve_index, self.it) if self.keyed
+                else self.draws)
+
+    def _stepped_in_rows(self, p, cur_mask):
+        """A row-local chain in the solve's row order, handed the sort as
+        ``rows``: the positions stay, only the mask is new."""
+        stepped = self.step_filters._apply_impl(
+            PointBatch(p, cur_mask, {}), self._step_draws(), rows=self.order)
+        return p, stepped.mask
+
+    def _stepped_permuted(self, p, cur_mask):
+        """Any chain on the reading in its original row order (permuted
+        back when the sweep sorted it), its outputs permuted forward."""
+        draws = self._step_draws()
         if self.order is None:
             stepped = self.step_filters._apply_impl(
                 PointBatch(p, cur_mask, {}), draws)
             return stepped.positions, stepped.mask
         inv = self.inv_order
+        if inv is None:  # a row-local chain's solve builds no inverse
+            inv = self.inv_order = _invert(self.order)
         stepped = self.step_filters._apply_impl(
             PointBatch(p[inv], cur_mask[inv], {}), draws)
         return stepped.positions[self.order], stepped.mask[self.order]
@@ -796,7 +823,7 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
 # --------------------------------------------------------------------------
 
 # the kernel wrappers a solve launches
-_COUNTED = (sweep_knn, knn, kabsch, p2p_step, philox_uniform,
+_COUNTED = (sweep_knn, knn, kabsch, p2p_step, philox_uniform, philox_keep,
             graph_loop.loop_commit)
 
 

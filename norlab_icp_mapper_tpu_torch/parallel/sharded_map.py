@@ -84,9 +84,10 @@ from .. import se3
 from ..cell_manager import CellManager, RAMCellManager
 from ..draws import (SITE_OCTREE_LEAF, SITE_OCTREE_PRIO, DrawSource,
                      resolve_device, upload)
-from ..icp.engine import (GraphReplay, _counters, _refuse_source_on_card,
-                          _rematch_every, _restore_counters, _rot_angle_np,
-                          _take)
+from ..filters.core import FilterChain
+from ..icp.engine import (GraphReplay, _counters, _invert,
+                          _refuse_source_on_card, _rematch_every,
+                          _restore_counters, _rot_angle_np, _take)
 from ..map import (BUFFER_SIZE, CELL_SIZE, _to_inferior_grid,
                    _to_superior_grid, bin_points_to_cells,
                    collect_cells_in_bounds)
@@ -235,7 +236,9 @@ class ShardedMapConfig:
     axis; out-of-window points are evicted to the host CellManager.
 
     ``step_filter``: a mask-only callable ``(PointBatch, draws) ->
-    PointBatch`` re-applied to the moved reading at every matcher pass.
+    PointBatch`` re-applied to the moved reading at every matcher pass; a
+    row-local ``FilterChain``'s ``_apply_impl`` (what the facade passes)
+    also takes ``rows`` and then filters the sorted reading as it is.
     """
 
     def __init__(self, dim: int = 3,
@@ -392,6 +395,13 @@ class _Window:
             else:
                 b += [0, 0]
         return tuple(b)
+
+
+def _row_local(step_filter) -> bool:
+    """Whether a step filter is a row-local chain's ``_apply_impl`` (the
+    facade's kind), which takes ``rows``; any other callable is not."""
+    chain = getattr(step_filter, "__self__", None)
+    return isinstance(chain, FilterChain) and chain.row_local
 
 
 def shard_device(mesh, device=None) -> torch.device:
@@ -570,26 +580,42 @@ class ShardedMapperStep:
         overflow = torch.clamp(keep.sum() - H, min=0)
         return pos[top], keep[top], prob[top], overflow
 
-    def _step_mask(self, p, read_mask, draws, order=None):
+    def _step_mask(self, p, read_mask, draws, order=None, inv=None):
         """readingStepDataPointsFilters: a fresh mask of the moved reading
         at every matcher pass, its draws replicated on every rank (keyed,
-        or a caller's source).  A reading the matcher sorted (``order``) is
-        filtered in its original row order, so that every draw lands on the
-        point it lands on in an unsorted solve."""
+        or a caller's source).  On a reading the matcher sorted (``order``,
+        ``inv`` its inverse) every draw lands on the point it lands on in
+        an unsorted solve: a row-local chain is handed ``order`` as its
+        ``rows`` (:meth:`_step_mask_in_rows`), any other chain filters the
+        reading permuted back to its original order
+        (:meth:`_step_mask_permuted`)."""
         if self.cfg.step_filter is None:
             return read_mask
+        if _row_local(self.cfg.step_filter):
+            return self._step_mask_in_rows(p, read_mask, draws, order)
+        return self._step_mask_permuted(p, read_mask, draws, order, inv)
+
+    def _step_mask_in_rows(self, p, read_mask, draws, order):
+        """A row-local chain in the solve's row order, ``rows=order``; its
+        mask holds ``read_mask`` already."""
+        return self.cfg.step_filter(PointBatch(p, read_mask, {}), draws,
+                                    rows=order).mask
+
+    def _step_mask_permuted(self, p, read_mask, draws, order, inv):
+        """Any chain (a callable ``(PointBatch, draws) -> PointBatch``) on
+        the reading in its original row order, the mask permuted forward."""
         if order is None:
             return read_mask & self.cfg.step_filter(
                 PointBatch(p, read_mask, {}), draws).mask
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(order.shape[0], device=order.device)
         return read_mask & self.cfg.step_filter(
             PointBatch(p[inv], read_mask[inv], {}), draws).mask[order]
 
     def _matcher(self, read_pos, read_mask, map_pos, map_msk):
         """Per-solve matcher ``match(p, cur) -> (d2 [N], idx [N], overflow)``
-        (d2 = inf beyond the radius), the reading it runs on and the order
-        that sorted it (None if unsorted).  ``ref_tile`` is not used: the
+        (d2 = inf beyond the radius), the reading it runs on, the order
+        that sorted it and that order's inverse (None if unsorted; the
+        inverse also None where the step chain does not permute, see
+        :meth:`_step_mask`).  ``ref_tile`` is not used: the
         brute-force 1-NN is ``ops.nn.nn1`` (``knn_brute`` on the card),
         which tiles the block itself.  With a finite ``match_max_dist`` the
         reading is sorted by x once and every pass is the sorted sweep over
@@ -601,13 +627,16 @@ class ShardedMapperStep:
             def match_bf(p, cur):
                 d2, idx = nn1(p, map_pos, cur, map_msk)
                 return d2, idx, None
-            return match_bf, read_pos, read_mask, None
+            return match_bf, read_pos, read_mask, None, None
         pre = presort_ref(map_pos, map_msk)
         q_x = torch.where(read_mask, read_pos[:, 0],
                           torch.full_like(read_pos[:, 0], 1e9))
         order = torch.sort(q_x, stable=True).indices
         read_pos = read_pos[order]
         read_mask = read_mask[order]
+        step = cfg.step_filter
+        inv = (_invert(order) if step is not None and not _row_local(step)
+               else None)
 
         def match_sweep(p, cur):
             d2, idx, ov = sweep_knn(p, map_pos, cur, map_msk, k=1,
@@ -615,7 +644,7 @@ class ShardedMapperStep:
                                     q_tile=1024, W=8192, presorted=pre,
                                     assume_sorted=True)
             return d2[:, 0], idx[:, 0], ov
-        return match_sweep, read_pos, read_mask, order
+        return match_sweep, read_pos, read_mask, order, inv
 
     # ------------------------------------------------------------- solve
     def icp_solve(self, read_pos, read_mask, map_pos, map_nrm, map_msk,
@@ -942,7 +971,8 @@ class _ShardedLoop:
         cfg, dev = self.cfg, self.dev
         dim = cfg.dim
         self.n_read = torch.clamp(self.read_mask.to(F32).sum(), min=1.0)
-        self.match, self.read, self.mask, self.order = self.step._matcher(
+        (self.match, self.read, self.mask, self.order,
+         self.inv_order) = self.step._matcher(
             self.read_pos, self.read_mask, self.map_pos, self.map_msk)
         smooth = cfg.diff_checker[2] if cfg.diff_checker else 1
         n_hist = cfg.max_iter if cfg.inspect else 1
@@ -982,7 +1012,7 @@ class _ShardedLoop:
     def _identity(self):
         """Identity: one pass, the overlap only."""
         cur = self.step._step_mask(self.read, self.mask, self._draws(),
-                                   self.order)
+                                   self.order, self.inv_order)
         d2, _, ov = self.match(self.read, cur)
         gmin = self.step._reduce(d2.clone(), MIN)
         max_d2 = float(np.float32(self.cfg.match_max_dist ** 2))
@@ -1033,7 +1063,8 @@ class _ShardedLoop:
         inf = float("inf")
         reduce = self.step._reduce
         max_d2 = float(np.float32(cfg.match_max_dist * cfg.match_max_dist))
-        cur = self.step._step_mask(p, self.mask, self._draws(), self.order)
+        cur = self.step._step_mask(p, self.mask, self._draws(), self.order,
+                                   self.inv_order)
         d2, idx, overflow = self.match(p, cur)
         gmin = reduce(d2.clone(), MIN)
         matched = cur & torch.isfinite(gmin) & (gmin <= max_d2)
