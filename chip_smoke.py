@@ -2109,6 +2109,16 @@ def exact_cases(rng, dev):
                         mp.positions, mp.mask, 1.0, 1024, 2048)
 
 
+def split_phases(totals, label):
+    """``PhaseTimer.totals()`` as two records: the spans' milliseconds
+    under ``phase_ms_<label>`` and the counters (``count.*``) under
+    ``phase_counts_<label>``."""
+    return {f"phase_ms_{label}": {k: round(v, 2) for k, v in totals.items()
+                                  if not k.startswith("count.")},
+            f"phase_counts_{label}": {k: v for k, v in totals.items()
+                                      if k.startswith("count.")}}
+
+
 def reset_counts():
     from norlab_icp_mapper_tpu_torch.ops import graph_loop
     from norlab_icp_mapper_tpu_torch.ops.nn import knn
@@ -2245,9 +2255,8 @@ def drive(config_name, scans, priors, phase, strict=False, online=False,
         "map_counts": counts, "final_map_count": counts[-1],
         "map_capacity": mapper.map.local.capacity,
         "icp_iterations": iters, "launches": launches,
-        "phase_ms_steady_total": {k: round(v, 2) for k, v in phases.items()},
-        "phase_ms_first_two_scans": {k: round(v, 2)
-                                     for k, v in warmup.items()},
+        **split_phases(phases, "steady_total"),
+        **split_phases(warmup, "first_two_scans"),
         "last_scan_overflow_tiles": overflow,
         "graph_captures": mapper.icp.graph_captures,
         "mapper_waits": dict(mapper.waits),
@@ -2590,9 +2599,8 @@ def drive_default(scans, priors, config=None, phase="default",
         "merged": merged, "map_counts": counts, "map_capacities": caps,
         "final_map_count": counts[-1], "map_capacity": caps[-1],
         "icp_iterations": iters, "launches": launches,
-        "phase_ms_steady_total": {k: round(v, 2) for k, v in phases.items()},
-        "phase_ms_first_two_scans": {k: round(v, 2)
-                                     for k, v in warmup.items()},
+        **split_phases(phases, "steady_total"),
+        **split_phases(warmup, "first_two_scans"),
         "graph_captures": mapper.icp.graph_captures,
         "mapper_waits": dict(mapper.waits),
     }

@@ -35,7 +35,19 @@ and files the pose's host copy between them (see ``mapper.py``), so that a
 consumer of the pose waits for the solve and not for the merge -- what the
 JAX package gets from its two programs in online mode.
 
-``PhaseTimer`` measures where a scan's time goes (CUDA events on the card).
+``PhaseTimer`` is the port's tracer: off by default; when enabled,
+``totals()`` holds four kinds of name --
+
+  <name>         device work (CUDA events on the card): ``solve`` and its
+                 ``icp_solve``, ``merge`` and the modules, filters,
+                 ``reference_filters`` and ``ref_pack`` inside it
+  host.<name>    the host's own clock around a call: ``process_input``,
+                 ``input_filters``
+  wait.<cause>   one blocking read of the card, a cause of ``Mapper.waits``
+  count.<name>   a counter: ``icp_iterations``, read at harvest
+
+and each span is also a ``mapper.<name>`` profiler range, on the device
+trace's clock.
 """
 from __future__ import annotations
 
@@ -50,36 +62,71 @@ from . import se3
 from .draws import upload
 from .points import PointBatch
 from .map import apply_post_filters
+from .utils.tracing import trace
 
 __all__ = ["FusedScanStep", "PhaseTimer"]
 
+_OFF = contextlib.nullcontext()  # every span of a disabled timer
+
 
 class PhaseTimer:
-    """Per-phase device time of the per-scan step.  Off by default; when
-    ``enabled`` each phase is bracketed by CUDA events on the current stream
-    (host clock on the CPU) and ``totals()`` returns milliseconds by name.
-    Phases nest: an outer phase includes its inner ones."""
+    """The port's spans and counters.  Off by default: a span is then a
+    shared null context and a counter returns at once, with no clock read,
+    event, range or dict touched.  When ``enabled``:
+
+    * ``phase(name, device)``: device time of the block, as CUDA events on
+      the current stream (the host clock on the CPU), under ``name``;
+    * ``host(name)``: the host clock around the block, under ``host.name``;
+    * ``wait(cause)``: the host clock around one blocking read, under
+      ``wait.cause``;
+    * ``count(name, n)``: adds ``n`` under ``count.name``.
+
+    Every span also opens the profiler range ``mapper.<its name>``
+    (``utils.tracing.trace``), so a device trace puts each kernel and each
+    idle gap under a span.  ``totals()`` returns one flat dict: milliseconds
+    by span name, summed (spans nest: an outer span includes its inner
+    ones), and the counters under ``count.``."""
 
     def __init__(self):
         self.enabled = False
         self._events: List = []  # (name, start, end) or (name, ms)
+        self._counts: Dict[str, int] = {}
 
-    @contextlib.contextmanager
     def phase(self, name: str, device: torch.device):
         if not self.enabled:
-            yield
+            return _OFF
+        return self._span(name, device.type == "cuda")
+
+    def host(self, name: str):
+        if not self.enabled:
+            return _OFF
+        return self._span("host." + name, False)
+
+    def wait(self, cause: str):
+        if not self.enabled:
+            return _OFF
+        return self._span("wait." + cause, False)
+
+    def count(self, name: str, n: int = 1) -> None:
+        if not self.enabled:
             return
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._events.append((name, start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._events.append((name, (time.perf_counter() - t0) * 1e3))
+        key = "count." + name
+        self._counts[key] = self._counts.get(key, 0) + n
+
+    @contextlib.contextmanager
+    def _span(self, name: str, on_card: bool):
+        with trace("mapper." + name):
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._events.append((name, start, end))
+            else:
+                t0 = time.perf_counter()
+                yield
+                self._events.append((name, (time.perf_counter() - t0) * 1e3))
 
     def totals(self, reset: bool = True) -> Dict[str, float]:
         if torch.cuda.is_available():
@@ -88,8 +135,10 @@ class PhaseTimer:
         for ev in self._events:
             ms = ev[1] if len(ev) == 2 else ev[1].elapsed_time(ev[2])
             out[ev[0]] = out.get(ev[0], 0.0) + ms
+        out.update(self._counts)
         if reset:
             self._events = []
+            self._counts = {}
         return out
 
 
@@ -147,9 +196,10 @@ class FusedScanStep:
             if len(m.icp.reading_filters):
                 reading = m.icp.reading_filters._apply_impl(reading, m.draws)
             ref_normals = m.icp.check_reference(ref)
-            correction, overlap, iters, _resid = m.icp.solve(
-                reading.positions, reading.mask, ref.positions, ref_normals,
-                ref.mask, bufs["ref_pack"], draws=m.draws)
+            with m.timer.phase("icp_solve", dev):
+                correction, overlap, iters, _resid = m.icp.solve(
+                    reading.positions, reading.mask, ref.positions,
+                    ref_normals, ref.mask, bufs["ref_pack"], draws=m.draws)
             corrected = correction @ est
             cond = m.map_update_condition
             if not is_mapping:
@@ -157,14 +207,15 @@ class FusedScanStep:
             elif cond == "delay":
                 should = bool(np.float32(stamp_s - meta["last_t"])
                               > np.float32(m.map_update_delay))
-            elif cond == "overlap":
-                m.waits["merge_decision"] += 1
-                should = bool(overlap < m.map_update_overlap)  # the read
-            else:  # distance
-                m.waits["merge_decision"] += 1
-                should = bool(torch.linalg.norm(
-                    corrected[:d, d] - meta["last_pose"][:d, d])
-                    > m.map_update_distance)  # the read
+            else:
+                if cond == "overlap":
+                    gate = overlap < m.map_update_overlap
+                else:  # distance
+                    gate = torch.linalg.norm(
+                        corrected[:d, d] - meta["last_pose"][:d, d]) \
+                        > m.map_update_distance
+                with m._waiting("merge_decision"):
+                    should = bool(gate)  # the read
         new_meta = {
             "pose": corrected,
             "last_pose": corrected if should else meta["last_pose"],

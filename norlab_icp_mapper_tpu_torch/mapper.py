@@ -24,7 +24,11 @@ once its event has passed (``event.query()``), so the host never waits for
 the card in the loop, except for the oldest scan when ``PIPELINE_DEPTH``
 scans are in flight, under capacity pressure, before a shrink, at a scan
 that applies deferred rolling-window events and at one that re-merges an
-overflowing scan; ``waits`` counts each.  The map's capacity
+overflowing scan, and at the merge decision of the ``distance`` and
+``overlap`` conditions (``fused.py``); ``waits`` counts each, and the
+enabled ``timer`` (``fused.PhaseTimer``) times each as ``wait.<cause>``
+beside ``host.process_input``, ``host.input_filters`` and the device
+phases.  The map's capacity
 is sized from a provisional bound (last harvested count + one headroom per
 scan in flight), with adaptive headroom for decimating configs, a shrink
 when the buffer is a bucket oversize, and a re-merge of a scan that filled
@@ -328,7 +332,8 @@ class Mapper:
     def apply_input_filters(self, scan: PointBatch) -> PointBatch:
         """Reference ``Mapper.cpp:187-191`` (scan in sensor frame): the
         radius filter, then the input chain."""
-        return self._input_all.apply(scan.to(self.device), self.draws)
+        with self.timer.host("input_filters"):
+            return self._input_all.apply(scan.to(self.device), self.draws)
 
     def process_input(self, filtered_scan_in_sensor_frame: PointBatch,
                       estimated_pose: np.ndarray, timestamp_ns: int,
@@ -341,6 +346,13 @@ class Mapper:
         bound checker take the stepwise path; every other scan enters the
         pipelined loop and returns without waiting for the card.
         """
+        with self.timer.host("process_input"):
+            self._process_input(filtered_scan_in_sensor_frame,
+                                estimated_pose, timestamp_ns, scan_valid_hint)
+
+    def _process_input(self, filtered_scan_in_sensor_frame: PointBatch,
+                       estimated_pose: np.ndarray, timestamp_ns: int,
+                       scan_valid_hint: Optional[int]) -> None:
         estimated_pose = np.asarray(estimated_pose, dtype=np.float32)
         scan = filtered_scan_in_sensor_frame.to(self.device)
         if self._sharded is not None:
@@ -420,13 +432,13 @@ class Mapper:
         ``waits`` counts it."""
         # apply the window events deferred from the previous scan (a sync)
         if self._pending_window:
-            self.waits["window_events"] += 1
-            self._drain_fused()
+            with self._waiting("window_events"):
+                self._drain_fused()
         if self._overflow_remerge is not None:
-            self.waits["remerge"] += 1
             scan_o, pose_o = self._overflow_remerge
             self._overflow_remerge = None
-            self._remerge_overflow(scan_o, pose_o)
+            with self._waiting("remerge"):
+                self._remerge_overflow(scan_o, pose_o)
         hint = int(scan_valid_hint) if scan_valid_hint else scan.capacity
         bufs, meta = self._ensure_fused_state()
         headroom = max(1, self.map.merge_headroom_scans()) * hint
@@ -454,8 +466,8 @@ class Mapper:
         target = bucket_capacity(self._fused_base_count + 2 * headroom)
         if target * 8 <= bufs["map"].capacity * 7:
             if self._fused_pending:
-                self.waits["shrink"] += 1
-            self._harvest_all()
+                with self._waiting("shrink"):
+                    self._harvest_all()
             target = bucket_capacity(self._fused_base_count + 2 * headroom)
             if target * 8 <= bufs["map"].capacity * 7 \
                     and target >= (self.map._known_count or 0):
@@ -477,9 +489,11 @@ class Mapper:
             # first before growing, so that phantom slack never grows the
             # buffers (every capacity-proportional pass pays for it)
             entry = self._fused_pending.popleft()
-            if not entry["count"].ready():
-                self.waits["capacity"] += 1
-            self._harvest_entry(entry)
+            if entry["count"].ready():
+                self._harvest_entry(entry)
+            else:
+                with self._waiting("capacity"):
+                    self._harvest_entry(entry)
         if ub() + headroom > bufs["map"].capacity:
             # two scans of slack keep the loop free-running; the reference
             # is padded alike and the matcher's pack rebuilt
@@ -548,8 +562,15 @@ class Mapper:
         while self._fused_pending and self._fused_pending[0]["count"].ready():
             self._harvest_entry(self._fused_pending.popleft())
         while len(self._fused_pending) > self.PIPELINE_DEPTH:
-            self.waits["pipeline_depth"] += 1
-            self._harvest_entry(self._fused_pending.popleft())
+            with self._waiting("pipeline_depth"):
+                self._harvest_entry(self._fused_pending.popleft())
+
+    def _waiting(self, cause: str):
+        """Count one blocking read of the card under ``cause`` in ``waits``
+        and return the span that times it (``PhaseTimer.wait``); every
+        counted wait is taken through here, around the call that blocks."""
+        self.waits[cause] += 1
+        return self.timer.wait(cause)
 
     def _harvest_entry(self, entry) -> None:
         """Fold one scan's mirrors (pose, iterations, count) into the host
@@ -560,6 +581,7 @@ class Mapper:
         count_prev = int(entry["count"].get()["count"])
         pose_prev = solve["pose"].numpy().copy()
         iters = int(solve["iterations"])
+        self.timer.count("icp_iterations", iters)
         if entry["replay"] is not None:
             # a solve graph counts its kernel launches once they are known
             entry["replay"].count(iters)
