@@ -1357,6 +1357,153 @@ def knn_cases(scans, poses, rng, dev):
     return entries
 
 
+
+def hall_os1_cell(dev, rng, n_scans=64, points=370_000):
+    """The benchmark's default cell's data (``port_bench``'s scene of
+    ``configs/os1_default.json``: the OS1-64 patrolling the hall): a map as
+    its set-up leaves one, the union of ``n_scans`` scans around the first
+    lap, one point per 0.1 m voxel, cut to ``points``; and one more scan
+    (sensor frame, 65,536 rays) with its true pose."""
+    sys.path.insert(0, os.path.join(HERE, "port_bench"))
+    from harness import manifest
+    from harness.scene import Scene
+    scene = Scene(manifest.config("os1_default"), dev)
+    lap = scene.scans_per_lap
+    idx = [i * lap // n_scans for i in range(n_scans)] + [lap + lap // 3]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    scans = scene.ray_cast(idx, gen).cpu().numpy()
+    poses = [scene.true_pose(j) for j in idx]
+    pts = numpy_map(list(scans[:-1]), poses[:-1], voxel=0.1)
+    if pts.shape[0] > points:
+        pts = pts[np.sort(rng.choice(pts.shape[0], points, replace=False))]
+    return pts, scans[-1], poses[-1]
+
+
+def knn_grid_case(name, query, qmask, ref, rmask):
+    """The grid search at one shape: ``knn_grid`` (grid kernel and its
+    fallback) against ``knn_brute`` on the same inputs bit for bit (d2 and
+    index on every row), the plain version on the card against both, with
+    the same fallback count; then timed beside the brute-force kernel, the
+    plain version and the bound."""
+    from norlab_icp_mapper_tpu_torch.ops import nn as N
+    from norlab_icp_mapper_tpu_torch.ops import nn_grid as G
+    before = (G.knn_grid.launches, dict(G.knn_grid.launches_by_shape),
+              N.knn.launches, dict(N.knn.launches_by_shape))
+    dim = query.shape[1]
+    n, m = query.shape[0], ref.shape[0]
+    t0 = time.time()
+    pack = G.build_grid_pack(ref, rmask)
+    torch.cuda.synchronize()
+    first_build_s = time.time() - t0
+    build_ms = time_cuda(lambda: G.build_grid_pack(ref, rmask), reps=5)
+    d_b, i_b = N.knn(query, ref, qmask, rmask, k=1)
+    qc = query.contiguous()
+    qrows = N.query_rows(qmask)
+
+    stats = torch.zeros(2, dtype=torch.int64, device=query.device)
+    d_g, i_g = G.knn_grid(query, qmask, pack, stats)
+    torch.cuda.synchronize()
+    same_d = bool(torch.equal(d_g.view(torch.int32), d_b.view(torch.int32)))
+    same_i = bool(torch.equal(i_g, i_b))
+    check(same_d and same_i,
+          f"{name}: knn_grid differs from knn_brute (d2 equal: {same_d}, "
+          f"index equal: {same_i})")
+    queries, fallbacks = stats.tolist()
+    d_p, i_p, fb_p = G.knn_grid_plain(query, qmask, pack)
+    check(bool(torch.equal(d_p.view(torch.int32), d_b.view(torch.int32)))
+          and bool(torch.equal(i_p, i_b)),
+          f"{name}: the plain version differs from knn_brute on the card")
+    check(fb_p == fallbacks, f"{name}: {fallbacks} fallbacks in the kernel, "
+                             f"{fb_p} in the plain version")
+
+    lo, ms, hi = time_cuda_stats(lambda: G.knn_grid(query, qmask, pack),
+                                 reps=9)
+    grid_ms = time_cuda(lambda: G._grid_kernel(qc, qrows, pack), reps=9)
+    brute_ms = time_cuda(lambda: N._knn_kernel(qc, qrows, pack.knn_pack(),
+                                               1), reps=5)
+    plain_ms = time_cuda(lambda: G.knn_grid_plain(query, qmask, pack),
+                         reps=2, warmup=1)
+    n_vr = int(pack.n_valid)
+    # every query row's coordinates and mask byte, every valid reference's
+    # coordinates, a distance and an index out per row (port_bench's
+    # nn_call_bytes)
+    bytes_moved = n * (4 * dim + 1) + n_vr * 4 * dim + n * 8
+    bound_ms = bytes_moved / PEAK_BYTES * 1e3
+    rec = {
+        "phase": "kernel_case", "case": name, "kernel": "knn_grid",
+        "D": dim, "N": n, "M": m, "valid_queries": queries,
+        "valid_refs": n_vr, "cells": int(pack.grid_i[3]),
+        "grid_dims": pack.grid_i[:3].tolist(),
+        "edge_m": float(pack.grid_f[3]), "shell_cap": G.SHELL_CAP,
+        "fallbacks": fallbacks,
+        "bit_identical_to_knn_brute": True,
+        "search_ms": ms, "search_ms_min_med_max": [lo, ms, hi],
+        "grid_kernel_ms": grid_ms, "knn_brute_ms": brute_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_arithmetic": f"{bytes_moved} bytes / 3.35 TB/s",
+        "share_of_bound": bound_ms / ms,
+        "pack_build_ms": build_ms, "pack_first_build_s": first_build_s,
+        "gpu": torch.cuda.get_device_name(0),
+    }
+    emit(rec)
+    (G.knn_grid.launches, G.knn_grid.launches_by_shape, N.knn.launches,
+     N.knn.launches_by_shape) = before
+    return {
+        "name": f"knn_grid[D={dim}]", "route": "cuda",
+        "source": "norlab_icp_mapper_tpu_torch/csrc/knn_grid.cu",
+        "replaces": "none (the unbounded k = 1 matcher of ops/nn_pallas.py:53)",
+        "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        "fallbacks": fallbacks,
+    }
+
+
+def knn_grid_cases(scans, poses, rng, dev):
+    """The grid search at the default matcher's shape (the knn_brute
+    cases' map and scan), and at the benchmark cell's: a 65,536-ray OS1
+    scan moved by a prior's error (0.15 m, 1 degree) and at its true pose,
+    after RandomSampling 0.75, against a ~370,000-point hall map; then
+    corner cases.  Returns the kernel table's entry of the cell's shape."""
+    import norlab_icp_mapper_tpu_torch as nt
+    world = default_like_map(scans, poses)
+    cap = nt.bucket_capacity(world.shape[0] + SCAN_CAPACITY)
+    mp = nt.PointBatch.from_numpy(world, capacity=cap, device=dev)
+    sc = nt.PointBatch.from_numpy(scans[-1], capacity=SCAN_CAPACITY,
+                                  device=dev)
+    scan_m = nt.se3.apply(torch.from_numpy(poses[-1]), sc)
+    sampled = scan_m.mask & torch.from_numpy(
+        rng.random(SCAN_CAPACITY) < 0.75).to(dev)
+    knn_grid_case("default_matcher_k1", scan_m.positions, sampled,
+                  mp.positions, mp.mask)
+    hall, scan, true = hall_os1_cell(dev, rng)
+    cap = nt.bucket_capacity(hall.shape[0] + 2 * scan.shape[0])
+    hp = nt.PointBatch.from_numpy(hall, capacity=cap, device=dev)
+    sc = nt.PointBatch.from_numpy(scan, device=dev)
+    keep = torch.from_numpy(rng.random(scan.shape[0]) < 0.75).to(dev)
+    entry = None
+    for label, pose in (("prior", perturb(true, rng)), ("true_pose", true)):
+        q = nt.se3.apply(torch.from_numpy(pose), sc)
+        e = knn_grid_case(f"cell_matcher_k1_{label}", q.positions,
+                          q.mask & keep, hp.positions, hp.mask)
+        entry = entry or e
+    # corner cases: 2-D, far queries (the fallback), an empty map
+    q2 = torch.from_numpy(rng.uniform(-20, 20, size=(5000, 2)).astype(
+        np.float32)).to(dev)
+    r2 = torch.from_numpy(rng.uniform(-20, 20, size=(7000, 2)).astype(
+        np.float32)).to(dev)
+    knn_grid_case("grid_2d", q2, torch.from_numpy(rng.random(5000) > 0.1
+                                                  ).to(dev), r2, None)
+    far = scan_m.positions.clone()
+    far[::97] += 40.0
+    far[5, 0] = float("nan")
+    knn_grid_case("grid_far_and_nan_queries", far, sampled, mp.positions,
+                  mp.mask)
+    knn_grid_case("grid_empty_map", scan_m.positions, scan_m.mask,
+                  mp.positions, torch.zeros_like(mp.mask))
+    return entry
+
+
 def numpy_map(scans, poses, voxel=0.15):
     """A map-like cloud without the Mapper: the union of the scans in the
     world frame, one point per voxel (numpy)."""
@@ -1438,6 +1585,7 @@ def phase_kernels(scans, poses, seed):
     eig_case("eigensolve_2d", cov2, m2 & (cnt2 >= 3), 1.0, on_path=False)
     exact_cases(rng, dev)
     entries += knn_cases(scans, poses, rng, dev)
+    entries.append(knn_grid_cases(scans, poses, rng, dev))
     entries.append(while_node_case())
     entries.append(loop_commit_case(rng))
     entries.append(kabsch_case(rng))
@@ -2128,8 +2276,11 @@ def reset_counts():
     from norlab_icp_mapper_tpu_torch.ops.kabsch import kabsch, p2p_step
     from norlab_icp_mapper_tpu_torch.ops.philox import (philox_keep,
                                                         philox_uniform)
+    from norlab_icp_mapper_tpu_torch.ops.nn_grid import knn_grid
     sweep_knn.launches = 0
     sweep_knn.launches_by_shape = {}
+    knn_grid.launches = 0
+    knn_grid.launches_by_shape = {}
     radius_pca.launches = 0
     sym_eig3_smallest.launches = 0
     knn.launches = 0
@@ -2154,6 +2305,9 @@ def read_counts():
            for (d, k), v in sweep_knn.launches_by_shape.items()}
     out.update({f"knn_brute[D={d},k={k}]": v
                 for (d, k), v in knn.launches_by_shape.items()})
+    from norlab_icp_mapper_tpu_torch.ops.nn_grid import knn_grid
+    out.update({f"knn_grid[D={d}]": v
+                for d, v in knn_grid.launches_by_shape.items()})
     out["radius_pca[D=3]"] = radius_pca.launches
     out["sym_eig[D=3]"] = sym_eig3_smallest.launches
     out["sweep_knn"] = sweep_knn.launches
@@ -2753,6 +2907,11 @@ def finish_no_radius_phase(mapper, rec, priors, poses):
     check(pd + mt == launch.get("knn_brute[D=3,k=1]", 0),
           f"{phase}: k = 1 launches outside PointDistance and the solve: "
           f"{launch}")
+    # the unbounded k = 1 matcher is the grid search, whose fallback is
+    # one knn_brute launch a pass
+    check(launch.get("knn_grid[D=3]", 0) == mt,
+          f"{phase}: {mt} matcher passes of knn_brute but "
+          f"{launch.get('knn_grid[D=3]', 0)} of knn_grid")
 
 
 def check_solve_sync(rec):

@@ -24,7 +24,9 @@
 //     the valid ones in front (a list, or the reference pack itself when a
 //     cloud is searched against itself) and their count in device memory;
 //     thread t serves the t-th of them and writes to that query's own row.
-//     The rows behind the count are filled with +inf / -1.
+//     The rows behind the count are filled with +inf / -1, except with
+//     `list_only`, where the list holds only the rows to search (the grid
+//     search's fallback, knn_grid.cu) and no other row is touched.
 //   * With Q queries per thread there are few threads, so the references are
 //     cut into S contiguous ascending ranges and a thread-block cluster of S
 //     blocks shares one query tile: block s searches range s, leaves its
@@ -69,7 +71,8 @@ knn_brute_kernel(const float* __restrict__ q, int q_stride, int q_dim,
                  const long long* __restrict__ n_q_ptr,
                  const float4* __restrict__ ref4,
                  const long long* __restrict__ n_ref_ptr, int n, int k,
-                 float* __restrict__ out_d, long long* __restrict__ out_i) {
+                 int list_only, float* __restrict__ out_d,
+                 long long* __restrict__ out_i) {
   constexpr int SLOTS = PAIR_THREADS * Q;  // queries per block
   constexpr int RING_BYTES = PAIR_STAGES * KNN_TILE * 16;
   constexpr int LIST_BYTES = K * SLOTS * 8;
@@ -112,7 +115,7 @@ knn_brute_kernel(const float* __restrict__ q, int q_stride, int q_dim,
   // a tile without a valid query: every block of its cluster takes this
   // branch, block 0 fills the rows
   if (tile_q * SLOTS >= n_q) {
-    if (rank == 0) {
+    if (rank == 0 && !list_only) {
 #pragma unroll
       for (int a = 0; a < Q; ++a) {
         if (row[a] >= 0) {
@@ -183,7 +186,7 @@ knn_brute_kernel(const float* __restrict__ q, int q_stride, int q_dim,
 
 #pragma unroll
   for (int a = 0; a < Q; ++a) {
-    if (row[a] < 0) continue;
+    if (row[a] < 0 || (list_only && !valid[a])) continue;
     if constexpr (K == 1) {
       int id = -1;
       if (valid[a]) id = pair_first_at<D>(ref4, bi[a][0], m, qv[a], bd[a][0]);
@@ -205,8 +208,8 @@ template <int D, int K>
 int launch(const float* q, int q_stride, int q_dim, const int* qlist,
            int rows_in_lane3,
            const long long* n_q, const float4* ref4, const long long* n_ref,
-           int n, int k, int splits, float* out_d, long long* out_i,
-           cudaStream_t stream) {
+           int n, int k, int splits, int list_only, float* out_d,
+           long long* out_i, cudaStream_t stream) {
   constexpr int Q = QueriesPerThread<K>::value;
   const int tiles = (n + PAIR_THREADS * Q - 1) / (PAIR_THREADS * Q);
   cudaLaunchConfig_t cfg = {};
@@ -223,7 +226,8 @@ int launch(const float* q, int q_stride, int q_dim, const int* qlist,
   cfg.numAttrs = 1;
   cudaError_t err =
       cudaLaunchKernelEx(&cfg, knn_brute_kernel<D, K, Q>, q, q_stride, q_dim,
-                         qlist, rows_in_lane3, n_q, ref4, n_ref, n, k, out_d, out_i);
+                         qlist, rows_in_lane3, n_q, ref4, n_ref, n, k,
+                         list_only, out_d, out_i);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -231,11 +235,12 @@ int launch(const float* q, int q_stride, int q_dim, const int* qlist,
 template <int D>
 int dispatch_k(const float* q, int q_stride, int q_dim, const int* qlist,
                int rows_in_lane3, const long long* n_q, const float4* ref4,
-               const long long* n_ref, int n, int k, int splits, float* out_d,
-               long long* out_i, cudaStream_t stream) {
+               const long long* n_ref, int n, int k, int splits,
+               int list_only, float* out_d, long long* out_i,
+               cudaStream_t stream) {
 #define KNN_LAUNCH(KK)                                                      \
   return launch<D, KK>(q, q_stride, q_dim, qlist, rows_in_lane3, n_q, ref4, \
-                       n_ref, n, k, splits, out_d, out_i, stream)
+                       n_ref, n, k, splits, list_only, out_d, out_i, stream)
   if (k < 1) return -2;
   if (k == 1) KNN_LAUNCH(1);
   if (k <= 4) KNN_LAUNCH(4);
@@ -260,6 +265,8 @@ int dispatch_k(const float* q, int q_stride, int q_dim, const int* qlist,
 //                    original index; the valid ones in front, order kept
 // n_ref     i64[1]   number of valid references, on the device
 // splits    1, 2, 4 or 8: blocks per cluster = ranges of the references
+// list_only 1: qlist holds only the rows to search (n_q of them, read from
+//                    the device); rows behind the count are not written
 // out_d     f32[n, k], out_i i64[n, k]
 // Returns 0, a cudaError_t from the launch, or -1/-2/-3 for an unsupported
 // dim / k / splits.  Launches on `stream`, does not synchronise, allocates
@@ -267,8 +274,8 @@ int dispatch_k(const float* q, int q_stride, int q_dim, const int* qlist,
 extern "C" int knn_brute_launch(const void* q, int q_stride, const void* qlist,
                                 int rows_in_lane3, const void* n_q,
                                 const void* ref4, const void* n_ref, int n,
-                                int dim, int k, int splits, void* out_d,
-                                void* out_i, void* stream) {
+                                int dim, int k, int splits, int list_only,
+                                void* out_d, void* out_i, void* stream) {
   if (n <= 0) return 0;
   if (splits != 1 && splits != 2 && splits != 4 && splits != 8) return -3;
   const float* qf = (const float*)q;
@@ -283,6 +290,7 @@ extern "C" int knn_brute_launch(const void* q, int q_stride, const void* qlist,
   // queries' z are 0, and adding +0 to the sum changes no bit of it
   if (dim == 3 || dim == 2)
     return dispatch_k<3>(qf, q_stride, rows_in_lane3 ? 3 : dim, ql,
-                         rows_in_lane3, nq, rf, nr, n, k, splits, od, oi, s);
+                         rows_in_lane3, nq, rf, nr, n, k, splits, list_only,
+                         od, oi, s);
   return -1;
 }

@@ -44,7 +44,9 @@ JAX package gets from its two programs in online mode.
   host.<name>    the host's own clock around a call: ``process_input``,
                  ``input_filters``
   wait.<cause>   one blocking read of the card, a cause of ``Mapper.waits``
-  count.<name>   a counter: ``icp_iterations``, read at harvest
+  count.<name>   a counter: ``icp_iterations``, and for the grid matcher
+                 ``nn_grid_queries`` and ``nn_grid_fallbacks``, read at
+                 harvest
 
 and each span is also a ``mapper.<name>`` profiler range, on the device
 trace's clock.
@@ -182,6 +184,7 @@ class FusedScanStep:
         """Transform -> ICP -> shouldUpdateMap (reference
         ``Mapper.cpp:194-272``).  Returns ``(new_meta, aux)``: ``aux`` holds
         ``correction``, ``overlap`` and ``iterations`` (device tensors), the
+        grid matcher's counts ``nn_grid`` (``ICPEngine.last_nn_grid``), the
         host boolean ``merged``, the scan in the map frame and the solve's
         graph replay (``ICPEngine.last_replay``)."""
         m = self._m
@@ -222,7 +225,8 @@ class FusedScanStep:
             "last_t": np.float32(stamp_s) if should else meta["last_t"],
         }
         aux = {"correction": correction, "merged": should,
-               "overlap": overlap, "iterations": iters, "scan_m": scan_m,
+               "overlap": overlap, "iterations": iters,
+               "nn_grid": m.icp.last_nn_grid, "scan_m": scan_m,
                "corrected": corrected, "replay": m.icp.last_replay}
         return new_meta, aux
 

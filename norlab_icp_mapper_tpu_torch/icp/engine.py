@@ -5,8 +5,10 @@ YAML section, gives it the local map and calls ``correction = icp(input)``
 per scan.  This engine reproduces that contract:
 
   - correspondence: with ``maxDist`` the sorted-sweep radius matcher
-    (``ops/nn_sweep.py``), without it the brute-force k-NN (``ops/nn.py``);
-    both are hand-written CUDA kernels on the card
+    (``ops/nn_sweep.py``); without it, on the card, the cell-grid 1-NN
+    (``ops/nn_grid.py``) at k = 1 and the brute-force k-NN (``ops/nn.py``)
+    at k > 1, and ``knn_plain`` on the CPU; all exact, the kernels written
+    by hand
   - outlier rejection: per-pair weights (trimmed-distance / max-distance /
     median-distance / surface-normal angle)
   - minimization: 6-DoF (3-DoF in 2-D) Gauss-Newton step for point-to-plane
@@ -51,7 +53,9 @@ run the registration one iteration per solve and record every iteration in
 a ``utils.tracing.IterationInspector`` (the VTK one also dumps the moved
 reading): lpm's inspector contract, with its cost, a host read per
 iteration.  The sweep matcher's overflow count is reported to
-``utils.tracing.record_overflow`` as ``icp_matcher_sweep``.
+``utils.tracing.record_overflow`` as ``icp_matcher_sweep``; the grid
+matcher's valid queries and fallback queries over a solve come back as
+``ICPEngine.last_nn_grid`` (i64[2] on the card, nothing read).
 """
 from __future__ import annotations
 
@@ -70,6 +74,8 @@ from ..points import PointBatch
 from ..filters.core import FilterChain
 from ..ops import graph_loop
 from ..ops.nn import KnnPack, knn, pack_refs
+from ..ops.nn_grid import (GridPack, build_grid_pack, knn_grid,
+                           matcher_pack_kind)
 from ..ops.nn_sweep import RefPack, presort_ref, sweep_knn
 from ..utils.tracing import IterationInspector, record_overflow
 
@@ -157,6 +163,9 @@ class ICPEngine:
         # with another one's pack while a map-update thread installs both.
         self._ref_state: tuple = (None, None)
         self.last_overflow: Optional[torch.Tensor] = None
+        # the grid matcher's (valid queries, fallback queries) of the last
+        # solve, i64[2] on the card (None for another matcher)
+        self.last_nn_grid: Optional[torch.Tensor] = None
         # the launches of the last solve's graph replay, to be counted once
         # its iterations are known (None: the wrappers counted them)
         self.last_replay: Optional["GraphReplay"] = None
@@ -267,7 +276,7 @@ class ICPEngine:
         self._ref_state = (ref, self._ref_state[1])
 
     @property
-    def _ref_pack(self) -> Union[RefPack, KnnPack, None]:
+    def _ref_pack(self) -> Union[RefPack, KnnPack, GridPack, None]:
         return self._ref_state[1]
 
     @_ref_pack.setter
@@ -284,13 +293,19 @@ class ICPEngine:
             ref = self.reference_filters.apply(ref, draws)
         self._ref_state = (ref, self.build_ref_pack(ref))
 
-    def build_ref_pack(self, ref: PointBatch) -> Union[RefPack, KnnPack]:
+    def build_ref_pack(self, ref: PointBatch
+                       ) -> Union[RefPack, KnnPack, GridPack]:
         """What the configured matcher prepares once per change of the
-        reference: with ``maxDist`` the x-sorted pack of the sweep, without
-        it the valid references packed to the front for the brute-force
-        search (no sort by x, no window)."""
-        if np.isfinite(self.match_max_dist):
+        reference (``nn_grid.matcher_pack_kind``): with ``maxDist`` the
+        x-sorted pack of the sweep; without it, at k = 1 on the card, the
+        cell grid of ``nn_grid``, and otherwise the valid references packed
+        to the front for the brute-force search."""
+        kind = matcher_pack_kind(self.match_max_dist, self.match_knn,
+                                 ref.positions.device)
+        if kind == "sweep":
             return presort_ref(ref.positions, ref.mask)
+        if kind == "grid":
+            return build_grid_pack(ref.positions, ref.mask)
         return pack_refs(ref.positions, ref.mask)
 
     def grow_map(self, local: PointBatch) -> None:
@@ -332,7 +347,7 @@ class ICPEngine:
         return self.reading_step_filters, draws, index
 
     def solve(self, read_pos, read_mask, ref_pos, ref_norm, ref_mask,
-              ref_pack: Union[RefPack, KnnPack],
+              ref_pack: Union[RefPack, KnnPack, GridPack],
               draws: Optional[DrawSource] = None) -> SolveOutput:
         """The configured solve on raw tensors.  ``ref_pack`` is
         :meth:`build_ref_pack` of the reference; ``draws`` feeds the step
@@ -348,10 +363,13 @@ class ICPEngine:
             graph = self._graph(cfg, args, step, draws)
             out = graph.run(*args, solve_index=index)
             self.last_replay = graph.replay
+            self.last_nn_grid = graph.last_nn_grid
         else:
-            out = _icp_solve(*args, step_filters=step, draws=draws,
-                             solve_index=index, **cfg)
+            loop = _loop(*args, step_filters=step, draws=draws,
+                         solve_index=index, **cfg)
+            out = loop.run()
             self.last_replay = None
+            self.last_nn_grid = loop.nn_grid
         self.last_overflow = out[4]
         if np.isfinite(self.match_max_dist):
             record_overflow("icp_matcher_sweep", out[4])
@@ -468,6 +486,7 @@ class ICPEngine:
                         and sum(h[1] for h in win) / smooth < min_r):
                     break
         self.last_replay = None
+        self.last_nn_grid = None
         return ICPResult(T.cpu(), overlap, it, resid)
 
 
@@ -509,7 +528,9 @@ class _Loop:
     """The ICP loop of one registration as state tensors and one iteration.
 
     The state is the JAX loop's ``(T, it, done, overlap, rms, hist)`` plus
-    the overflow count of the matcher, as tensors on the reading's device.
+    the overflow count of the matcher and, for the grid matcher, its
+    counts of valid and fallback queries, as tensors on the reading's
+    device.
     :meth:`start` sets it (and, with ``maxDist``, sorts the reading by x
     once); :meth:`iteration` is one JAX ``body``, written so that an
     iteration run after the stop changes no bit of the state: every update
@@ -597,6 +618,10 @@ class _Loop:
         self.hist = torch.full((smooth_len, 2), float("inf"), dtype=f32,
                                device=dev)
         self.overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        # the grid matcher's (valid queries, fallback queries), None for
+        # another pack
+        self.nn_grid = (torch.zeros(2, dtype=torch.int64, device=dev)
+                        if isinstance(self.ref_pack, GridPack) else None)
 
     def outputs(self):
         """``(T, overlap, iterations, rms, overflow)`` on the reading's
@@ -706,6 +731,9 @@ class _Loop:
                                           q_tile=1024, W=8192,
                                           presorted=self.ref_pack,
                                           assume_sorted=True)
+        elif isinstance(self.ref_pack, GridPack):
+            d2, idx = knn_grid(p, cur_mask, self.ref_pack, stats=self.nn_grid)
+            overflow = torch.zeros((), dtype=torch.int64, device=self.dev)
         else:
             d2, idx = knn(p, self.ref_pos, cur_mask, self.ref_mask, k=self.k,
                           pack=self.ref_pack)
@@ -807,15 +835,21 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
     the sweep matcher's overflowing tiles over all passes (0 for a matcher
     without ``maxDist``).
     """
-    return _Loop(read_pos, read_mask, ref_pos, ref_norm, ref_mask, ref_pack,
+    return _loop(read_pos, read_mask, ref_pos, ref_norm, ref_mask, ref_pack,
                  dim=dim, k=k, max_dist=max_dist,
                  outlier_filters=outlier_filters, minimizer=minimizer,
                  max_iter=max_iter, diff_checker=diff_checker,
                  bound_checker=bound_checker, step_filters=step_filters,
-                 draws=draws, rematch_every=rematch_every,
-                 solve_index=torch.full((), int(solve_index),
-                                        dtype=torch.int64,
-                                        device=read_pos.device)).run()
+                 draws=draws, solve_index=solve_index,
+                 rematch_every=rematch_every).run()
+
+
+def _loop(*args, solve_index: int = 0, **kw) -> _Loop:
+    """The :class:`_Loop` of :func:`_icp_solve`'s arguments, its solve
+    index as a 0-d int64 on the reading's device."""
+    return _Loop(*args, solve_index=torch.full(
+        (), int(solve_index), dtype=torch.int64, device=args[0].device),
+        **kw)
 
 
 # --------------------------------------------------------------------------
@@ -823,8 +857,8 @@ def _icp_solve(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
 # --------------------------------------------------------------------------
 
 # the kernel wrappers a solve launches
-_COUNTED = (sweep_knn, knn, kabsch, p2p_step, philox_uniform, philox_keep,
-            graph_loop.loop_commit)
+_COUNTED = (sweep_knn, knn, knn_grid, kabsch, p2p_step, philox_uniform,
+            philox_keep, graph_loop.loop_commit)
 
 
 def _counters():
@@ -938,15 +972,17 @@ class _SolveGraph:
             ref_pack, solve_index: int = 0):
         """Copy in (the solve index of the keyed draws through pinned memory,
         without a wait), replay, copy out: ``(T, overlap, iterations, rms,
-        overflow)`` as fresh tensors."""
+        overflow)`` as fresh tensors, and the grid matcher's counts as
+        ``last_nn_grid`` (None for another pack)."""
         self._copy_in(read_pos, read_mask, ref_pos, ref_norm, ref_mask,
                       ref_pack)
         self._solve.copy_(torch.tensor(int(solve_index), dtype=torch.int64
                                        ).pin_memory(), non_blocking=True)
         graph_loop.replay(self.graph)
         loop = self.loop
-        return tuple(t.clone() for t in (loop.T, loop.overlap, loop.it,
-                                         loop.rms, loop.overflow))
+        self.last_nn_grid = (None if loop.nn_grid is None
+                             else loop.nn_grid.clone())
+        return tuple(t.clone() for t in loop.outputs())
 
     def close(self) -> None:
         """Free the graph before the pools its body reads from."""

@@ -510,7 +510,9 @@ class Mapper:
                 bufs, meta, scan, estimated_pose, stamp_s, self.is_mapping)
             # filed before the merge in stream order: a reader of the pose
             # waits for the solve only
-            solve = _Mirror(pose=new_meta["pose"], iterations=aux["iterations"])
+            solve = _Mirror(pose=new_meta["pose"], iterations=aux["iterations"],
+                            **({} if aux["nn_grid"] is None
+                               else {"nn_grid": aux["nn_grid"]}))
             new_bufs, count = self._fused.merge(bufs, aux)
             count = _Mirror(count=count)
         except Exception as e:
@@ -573,15 +575,19 @@ class Mapper:
         return self.timer.wait(cause)
 
     def _harvest_entry(self, entry) -> None:
-        """Fold one scan's mirrors (pose, iterations, count) into the host
-        bookkeeping.  Merge stamps and poses are kept here in exact integer
-        ns and full precision; the f32 ``last_t`` of the step is only the
-        delay gate's operand."""
+        """Fold one scan's mirrors (pose, iterations, the grid matcher's
+        counts, map count) into the host bookkeeping.  Merge stamps and
+        poses are kept here in exact integer ns and full precision; the f32
+        ``last_t`` of the step is only the delay gate's operand."""
         solve = entry["solve"].get()
         count_prev = int(entry["count"].get()["count"])
         pose_prev = solve["pose"].numpy().copy()
         iters = int(solve["iterations"])
         self.timer.count("icp_iterations", iters)
+        if "nn_grid" in solve:
+            queries, fallbacks = solve["nn_grid"].tolist()
+            self.timer.count("nn_grid_queries", queries)
+            self.timer.count("nn_grid_fallbacks", fallbacks)
         if entry["replay"] is not None:
             # a solve graph counts its kernel launches once they are known
             entry["replay"].count(iters)

@@ -26,7 +26,7 @@ __all__ = ["load", "start_builds", "KERNEL_SOURCES", "build_dir"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 KERNEL_SOURCES = ("sweep_knn", "radius_pca", "knn_brute", "sym_eig",
-                  "graph_loop", "kabsch", "philox")
+                  "graph_loop", "kabsch", "philox", "knn_grid")
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

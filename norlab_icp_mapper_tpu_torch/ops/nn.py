@@ -150,11 +150,15 @@ def query_rows(query_mask: Optional[torch.Tensor]):
 
 
 def _knn_kernel(query, qrows, pack: KnnPack, k: int,
-                self_search: bool = False, splits: Optional[int] = None):
+                self_search: bool = False, splits: Optional[int] = None,
+                out=None):
     """Launch ``csrc/knn_brute.cu`` on the current stream.  ``qrows`` is
     :func:`query_rows` of the query mask.  With ``self_search`` the pack's
     rows are the queries and ``qrows`` is not read (``query`` is the cloud
-    the pack was built from)."""
+    the pack was built from).  With ``out = (d2, idx)`` the kernel searches
+    only the rows that ``qrows`` lists before its count, writes their
+    results into ``out`` and touches no other row (the grid search's
+    fallback, ``ops/nn_grid.py``)."""
     from ._build import load
     n, dim = query.shape
     if dim not in (2, 3):
@@ -185,9 +189,18 @@ def _knn_kernel(query, qrows, pack: KnnPack, k: int,
                 raise ValueError("knn kernel: the query rows are i32[N] "
                                  "with an int64 count")
             tensors += [qlist, n_q]
+    if out is not None:
+        tensors += list(out)
+        if (qrows is None or self_search or out[0].shape != (n, k)
+                or out[1].shape != (n, k) or out[0].dtype != torch.float32
+                or out[1].dtype != torch.int64):
+            raise ValueError("knn kernel: a listed search needs the rows' "
+                             "list and f32 / i64 outputs of [N, k]")
+        d_out, i_out = out
+    else:
+        d_out = torch.empty((n, k), dtype=torch.float32, device=query.device)
+        i_out = torch.empty((n, k), dtype=torch.int64, device=query.device)
     _check_kernel_args(*tensors)
-    d_out = torch.empty((n, k), dtype=torch.float32, device=query.device)
-    i_out = torch.empty((n, k), dtype=torch.int64, device=query.device)
     if n == 0:
         return d_out, i_out  # no query, no launch
     ref4 = pack.ref4
@@ -198,7 +211,8 @@ def _knn_kernel(query, qrows, pack: KnnPack, k: int,
     fn = lib.knn_brute_launch
     if not getattr(fn, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+        fn.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp,
+                       vp]
         fn.restype = ci
         fn._typed = True
     with torch.cuda.device(query.device):
@@ -207,7 +221,8 @@ def _knn_kernel(query, qrows, pack: KnnPack, k: int,
                  None if qlist is None else qlist.data_ptr(),
                  int(self_search), None if n_q is None else n_q.data_ptr(),
                  ref4.data_ptr(), pack.n_valid.data_ptr(), n, dim, k, splits,
-                 d_out.data_ptr(), i_out.data_ptr(), stream)
+                 int(out is not None), d_out.data_ptr(), i_out.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"knn_brute kernel launch failed (code {err})")
     knn.launches += 1
